@@ -1,0 +1,48 @@
+"""Carries state across from the JAX package.
+
+Takes only bytes and numpy arrays — never objects or modules of
+``tendermint_tpu`` — so the port stays importable where that package
+cannot be:
+
+* :func:`validator_set_from_reference` / :func:`commit_from_reference`
+  decode the JAX package's ``ValidatorSet.encode()`` / ``Commit.encode()``
+  bytes (the same proto wire format) into the port's types;
+* :func:`base_table_from_reference` converts the JAX fixed-base table
+  (``curve._build_base_table``: (64, 16, 3, 17) u32, 17 limbs of 15 bits)
+  into the port's (64, 16, 3, 10) layout of 26/25-bit limbs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .crypto.ed25519_cuda import field as F
+from .types.block import Commit
+from .types.validator_set import ValidatorSet
+
+_REF_NLIMBS = 17
+_REF_RADIX = 15
+
+
+def validator_set_from_reference(encoded: bytes) -> ValidatorSet:
+    return ValidatorSet.decode(encoded)
+
+
+def commit_from_reference(encoded: bytes) -> Commit:
+    return Commit.decode(encoded)
+
+
+def base_table_from_reference(table: np.ndarray) -> np.ndarray:
+    """(64, 16, 3, 17) 15-bit limbs -> (64, 16, 3, 10) uint32 port limbs
+    of the same field elements (reduced mod p)."""
+    table = np.asarray(table)
+    if table.shape != (64, 16, 3, _REF_NLIMBS):
+        raise ValueError(f"expected a (64, 16, 3, {_REF_NLIMBS}) table, "
+                         f"got {table.shape}")
+    flat = table.reshape(-1, _REF_NLIMBS).astype(np.uint64)
+    out = np.zeros((flat.shape[0], F.NLIMBS), dtype=np.uint32)
+    for row in range(flat.shape[0]):
+        x = sum(int(flat[row, i]) << (_REF_RADIX * i)
+                for i in range(_REF_NLIMBS)) % F.P_INT
+        out[row] = F.int_to_limbs(x)
+    return out.reshape(64, 16, 3, F.NLIMBS)

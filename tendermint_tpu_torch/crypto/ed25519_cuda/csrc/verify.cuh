@@ -1,0 +1,149 @@
+// One strict, cofactorless Ed25519 verification per thread.
+//
+// Counterpart of K5 (tendermint_tpu/crypto/ed25519_jax/verify.py
+// _verify_kernel) and of K7's preimage assembly (_assemble_blocks). The
+// host keeps the length and s < L checks and ANDs its mask with this
+// verdict, exactly as the JAX package does.
+#pragma once
+
+#include "curve.cuh"
+#include "scalar.cuh"
+#include "sha512.cuh"
+
+// [s]B + [h](-A), encoded, compared with R as bytes. A failed decompression
+// is masked to the identity before the scalar multiply: its coordinates are
+// off the curve, where the addition law's z != 0 guarantee (and so the
+// inversion in the encoding) does not hold. Its verdict is false either way.
+TM_NOINLINE bool verify_core(const uint8_t r[32], const uint8_t a[32],
+                        const uint8_t s[32], const uint64_t digest_le[8],
+                        const uint32_t *__restrict__ base_table) {
+  ge A;
+  const bool ok_a = ge_decompress(A, a);
+  if (!ok_a) ge_identity(A);
+  ge negA;
+  ge_neg(negA, A);
+  uint8_t h_digits[64], s_digits[64];
+  sc_reduce_digits(h_digits, digest_le);
+  TM_UNROLL
+  for (int i = 0; i < 32; i++) {
+    s_digits[2 * i] = s[i] & 15;
+    s_digits[2 * i + 1] = s[i] >> 4;
+  }
+  ge hA, sB, rp;
+  ge_scalar_mul_windowed(hA, negA, h_digits);
+  ge_scalar_mul_base(sB, s_digits, base_table);
+  ge_add(rp, sB, hA);
+  uint8_t enc[32];
+  ge_encode(enc, rp);
+  bool eq = true;
+  TM_UNROLL
+  for (int i = 0; i < 32; i++) eq = eq && enc[i] == r[i];
+  return ok_a && eq;
+}
+
+// Dense wire format (prepare_batch): an item's preimage R || A || M, padded,
+// as nblk_max blocks of 32 big-endian u32 words; R and A are read back out
+// of the first block. Only the item's own nblk blocks are hashed.
+TM_DEV bool verify_dense_item(const uint32_t *__restrict__ words, int nblk,
+                              const uint32_t *__restrict__ s_words,
+                              const uint32_t *__restrict__ base_table) {
+  uint8_t r[32], a[32], s[32];
+  TM_UNROLL
+  for (int t = 0; t < 8; t++) {
+    const uint32_t wr = TM_LDG(words + t), wa = TM_LDG(words + 8 + t);
+    const uint32_t ws = TM_LDG(s_words + t);
+    TM_UNROLL
+    for (int b = 0; b < 4; b++) {
+      r[4 * t + b] = (uint8_t)(wr >> (24 - 8 * b));
+      a[4 * t + b] = (uint8_t)(wa >> (24 - 8 * b));
+      s[4 * t + b] = (uint8_t)(ws >> (8 * b));
+    }
+  }
+  uint64_t st[8];
+  sha512_init(st);
+  for (int b = 0; b < nblk; b++) {
+    uint64_t blk[16];
+    TM_UNROLL
+    for (int t = 0; t < 16; t++) {
+      const uint32_t *w = words + 32 * b + 2 * t;
+      blk[t] = ((uint64_t)TM_LDG(w) << 32) | TM_LDG(w + 1);
+    }
+    sha512_compress(st, blk);
+  }
+  uint64_t dig[8];
+  sha512_digest_le64(dig, st);
+  return verify_core(r, a, s, dig, base_table);
+}
+
+// Sparse wire format (prepare_sparse_stream): block b of an item's
+// preimage assembled from its chunk's template, the diff columns, mlen, R
+// and A — byte-identical to prepare_batch. Same write order as the JAX
+// _assemble_blocks: template, diff values, zero from mlen on, the 0x80
+// marker, then the 128-bit big-endian bit length at the end of block
+// nblk - 1. Duplicate pad columns rewrite the same value.
+TM_DEV void sparse_block(uint64_t blk[16], int b,
+                         const uint8_t *__restrict__ tpl, int mlen_max,
+                         const int32_t *__restrict__ cols, int ncols,
+                         const uint8_t *__restrict__ dvals, int mlen,
+                         const uint8_t r[32], const uint8_t a[32], int nblk) {
+  uint8_t buf[128];
+  for (int j = 0; j < 128; j++) {
+    const int pos = 128 * b + j, mp = pos - 64;
+    uint8_t v;
+    if (pos < 32) {
+      v = r[pos];
+    } else if (pos < 64) {
+      v = a[pos - 32];
+    } else {
+      v = mp < mlen_max ? TM_LDG(tpl + mp) : 0;
+    }
+    buf[j] = v;
+  }
+  for (int c = 0; c < ncols; c++) {
+    const int pos = 64 + TM_LDG(cols + c);
+    if ((pos >> 7) == b) buf[pos & 127] = TM_LDG(dvals + c);
+  }
+  const uint32_t bitlen = (uint32_t)(mlen + 64) * 8u;
+  const int last = nblk * 128;  // end of the item's last block
+  for (int j = 0; j < 128; j++) {
+    const int pos = 128 * b + j, mp = pos - 64;
+    if (mp >= mlen) buf[j] = 0;
+    if (mp == mlen) buf[j] = 0x80;
+    const int k = last - 1 - pos;  // byte k of the big-endian length
+    if (k >= 0 && k < 8) buf[j] = k < 4 ? (uint8_t)(bitlen >> (8 * k)) : 0;
+  }
+  TM_UNROLL
+  for (int t = 0; t < 16; t++) {
+    uint64_t x = 0;
+    TM_UNROLL
+    for (int i = 0; i < 8; i++) x = (x << 8) | buf[8 * t + i];
+    blk[t] = x;
+  }
+}
+
+TM_DEV bool verify_sparse_item(const uint8_t *__restrict__ tpl, int mlen_max,
+                               const int32_t *__restrict__ cols, int ncols,
+                               const uint8_t *__restrict__ dvals, int mlen,
+                               const uint8_t *__restrict__ r_g,
+                               const uint8_t *__restrict__ a_g,
+                               const uint8_t *__restrict__ s_g,
+                               const uint32_t *__restrict__ base_table) {
+  uint8_t r[32], a[32], s[32];
+  TM_UNROLL
+  for (int i = 0; i < 32; i++) {
+    r[i] = TM_LDG(r_g + i);
+    a[i] = TM_LDG(a_g + i);
+    s[i] = TM_LDG(s_g + i);
+  }
+  const int nblk = (64 + mlen + 17 + 127) / 128;
+  uint64_t st[8];
+  sha512_init(st);
+  for (int b = 0; b < nblk; b++) {
+    uint64_t blk[16];
+    sparse_block(blk, b, tpl, mlen_max, cols, ncols, dvals, mlen, r, a, nblk);
+    sha512_compress(st, blk);
+  }
+  uint64_t dig[8];
+  sha512_digest_le64(dig, st);
+  return verify_core(r, a, s, dig, base_table);
+}

@@ -1,0 +1,144 @@
+"""The port's CUDA kernels on the card (marker ``cuda``).
+
+These need an NVIDIA GPU and skip without one: the CUDA kernels have no
+CPU mode. The file imports neither ``jax`` nor ``tendermint_tpu``, so it
+runs where only the port is installed. On the card, from the repository
+root:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py pins JAX to the CPU and needs jax.)
+Each kernel is held against its plain PyTorch version on the same card
+tensors, item by item, and the verdicts against the host spec
+(``tendermint_tpu_torch/crypto/ed25519.py``, the JAX package's spec
+copied verbatim).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu_torch import device
+from tendermint_tpu_torch.crypto import Ed25519PubKey
+from tendermint_tpu_torch.crypto import batch as tbatch
+from tendermint_tpu_torch.crypto import ed25519 as ed
+from tendermint_tpu_torch.crypto.ed25519_cuda import curve as TC
+from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    device.set_default_device(dev)
+    TV.reset_launches()
+    yield dev
+    device.set_default_device(None)
+
+
+def _cases(n_valid, seed, msg_len):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_valid):
+        priv, pub = ed.keygen(bytes(rng.integers(0, 256, 32, dtype=np.uint8)))
+        msg = bytes(rng.integers(0, 256, msg_len + i % 3, dtype=np.uint8))
+        sig = ed.sign(priv, msg)
+        out.append((pub, msg, sig))
+        out.append((pub, msg, sig[:33] + bytes([sig[33] ^ 4]) + sig[34:]))
+    priv, pub = ed.keygen(b"\x07" * 32)
+    msg = out[0][1]
+    sig = ed.sign(priv, msg)
+    s_int = int.from_bytes(sig[32:], "little")
+    out += [
+        (pub, msg, sig),
+        (pub, msg, sig[:32] + (s_int + ed.L).to_bytes(32, "little")),
+        ((ed.P + 1).to_bytes(32, "little"), msg, sig),
+        ((2**255 - 1).to_bytes(32, "little"), msg, sig),
+        (b"\x01" + b"\x00" * 30 + b"\x80", msg, sig),
+        (b"\x01" + b"\x00" * 31, msg, sig),
+        (b"\x00" * 32, msg, sig),
+        (pub, msg, b"\x00" * 64),
+        (pub[:31], msg, sig),
+    ]
+    return out
+
+
+@pytest.mark.parametrize("msg_len", [20, 110])  # NBLK 1 and 2
+def test_dense_kernel_matches_plain_and_spec(_card, msg_len):
+    cases = _cases(12, seed=msg_len, msg_len=msg_len)
+    pks, msgs, sigs = (list(x) for x in zip(*cases))
+    bw, nblk, sw, ok = TV.prepare_batch(pks, msgs, sigs)
+    args = [torch.from_numpy(x).to(_card) for x in
+            (TV._as_i32(bw), nblk.astype(np.int32), TV._as_i32(sw))]
+    table = TC.base_table(_card)
+    got = TV.verify_dense(*args, table).cpu().numpy()
+    assert TV.launches["ed25519_verify_dense"] == 1
+    assert got.tolist() == TV.verify_dense_plain(*args,
+                                                 table).cpu().tolist()
+    assert (got & ok).tolist() == [ed.verify(*c) for c in cases]
+
+
+def test_dense_kernel_bounds_block_counts(_card):
+    """Block counts outside [0, NBLK] (not produced by prepare_batch) are
+    clamped to the row, as the plain version's mask does: no read past
+    the row, same verdicts."""
+    cases = _cases(4, seed=9, msg_len=20)
+    pks, msgs, sigs = (list(x) for x in zip(*cases))
+    bw, nblk, sw, _ = TV.prepare_batch(pks, msgs, sigs)
+    nblk = nblk.astype(np.int32)
+    nblk[::3] = 7
+    nblk[1::3] = -2
+    args = [torch.from_numpy(x).to(_card) for x in
+            (TV._as_i32(bw), nblk, TV._as_i32(sw))]
+    table = TC.base_table(_card)
+    got = TV.verify_dense(*args, table)
+    torch.cuda.synchronize()
+    assert got.cpu().tolist() == TV.verify_dense_plain(*args,
+                                                       table).cpu().tolist()
+
+
+def test_sparse_kernel_matches_plain_and_spec(_card):
+    rng = np.random.default_rng(3)
+    base = bytes(rng.integers(0, 256, 110, dtype=np.uint8))
+    cases = []
+    for i in range(20):
+        priv, pub = ed.keygen(bytes([i + 1]) * 32)
+        m = bytearray(base)
+        m[50], m[77] = i, (3 * i) % 256
+        sig = ed.sign(priv, bytes(m))
+        if i % 4 == 1:
+            sig = sig[:9] + bytes([sig[9] ^ 1]) + sig[10:]
+        cases.append((pub, bytes(m), sig))
+    pks, msgs, sigs = (list(x) for x in zip(*cases))
+    packed = TV.pack_sparse(pks, msgs, sigs, 8)  # 3 chunks, 4 padded rows
+    args = [torch.from_numpy(np.array(x)).to(_card) for x in packed[:7]]
+    table = TC.base_table(_card)
+    got = TV.verify_sparse(*args, 8, table).cpu().numpy()
+    assert got.shape == (24,)
+    assert got.tolist() == TV.verify_sparse_plain(*args, 8,
+                                                  table).cpu().tolist()
+    assert (got[:20] & packed[7]).tolist() == [ed.verify(*c) for c in cases]
+
+
+def test_probe_kernel_matches_plain(_card):
+    x = torch.randint(0, 256, (256, 128), dtype=torch.uint8, device=_card)
+    assert TV.probe_sum(x).item() == TV.probe_sum_plain(x).item()
+    assert TV.probe_dispatch_seconds(_card) > 0
+    assert TV.launches["probe_sum_u8"] == 2
+
+
+def test_batch_verifier_on_card(_card):
+    """The seam end to end on the card: BatchVerifier -> batch_verify ->
+    the dense kernel, verdicts equal to the spec."""
+    cases = _cases(40, seed=5, msg_len=110)
+    bv = tbatch.BatchVerifier(backend="cuda")
+    for pub, msg, sig in cases:
+        bv.add(Ed25519PubKey(pub), msg, sig)
+    before = tbatch.stats["device_errors"]
+    _, verdicts = bv.verify()
+    assert verdicts.tolist() == [ed.verify(*c) for c in cases]
+    assert tbatch.stats["device_errors"] == before
+    assert TV.launches["ed25519_verify_dense"] >= 1

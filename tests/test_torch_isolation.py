@@ -1,0 +1,71 @@
+"""The port stands alone: every module of tendermint_tpu_torch, and
+chip_smoke.py, imports in a process where ``jax`` and the JAX package
+``tendermint_tpu`` cannot be imported (a meta-path finder refuses the exact
+top-level names, so ``tendermint_tpu_torch`` itself still imports)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_CHILD = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = {"jax", "jaxlib", "tendermint_tpu"}
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {name}")
+            return None
+
+    for name in list(sys.modules):
+        if name.split(".")[0] in BLOCKED:
+            del sys.modules[name]
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, sys.argv[1])
+
+    import tendermint_tpu_torch
+    names = ["tendermint_tpu_torch"]
+    for info in pkgutil.walk_packages(tendermint_tpu_torch.__path__,
+                                      "tendermint_tpu_torch."):
+        names.append(info.name)
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke  # noqa: F401  (its __main__ block does not run)
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print(" ".join(names))
+""")
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT / "tendermint_tpu_torch"), env=env)
+    assert out.returncode == 0, out.stderr[-4000:]
+    imported = set(out.stdout.split())
+    for name in ("tendermint_tpu_torch.convert",
+                 "tendermint_tpu_torch.crypto.batch",
+                 "tendermint_tpu_torch.crypto.ed25519_cuda.verify",
+                 "tendermint_tpu_torch.crypto.ed25519_cuda.build",
+                 "tendermint_tpu_torch.types.validator_set"):
+        assert name in imported
+
+
+def test_blocker_really_blocks():
+    """The same finder refuses ``tendermint_tpu`` itself (the check above
+    is not vacuous)."""
+    child = _CHILD.replace("import tendermint_tpu_torch\n",
+                           "import tendermint_tpu_torch\n"
+                           "import tendermint_tpu\n", 1)
+    out = subprocess.run([sys.executable, "-c", child, str(ROOT)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT / "tendermint_tpu_torch"))
+    assert out.returncode != 0
+    assert "blocked import: tendermint_tpu" in out.stderr
