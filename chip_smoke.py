@@ -16,6 +16,16 @@ Phases, each reported on its own line:
    index. Launch counters are zeroed just before and read just after.
 4. times: each kernel (CUDA events) at the main path's shapes beside its
    plain version and its bound; verify_commit signatures per second.
+5. apply: block execution on a 150-validator chain with the Merkle kvstore
+   app over an app state of 2^20 keys (BlockExecutor.apply_block ->
+   validate_block -> verify_commit on the dense kernel; BeginBlock,
+   DeliverTx, EndBlock; Commit -> IncrementalMerkle -> the SHA-256
+   kernel). Four seed blocks of 262,144 txs build the state; then two
+   insert heights (a full rebuild: 7 kernel launches each) and two update
+   heights (the patch path: none) are measured, each split into validate,
+   execute and commit+persist, with the merkle root time and the kernel's
+   device time inside commit. The last app hash must equal the recursive
+   hashlib spec over the whole state.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It exits non-zero without CUDA or outside a checkout, and when any phase
@@ -45,6 +55,22 @@ N_SPARSE_CHECK = 4000
 BAD_IDX = 7777
 CHUNK = 2048
 
+# block execution: BASELINE.json config 2's 150 validators, the node's
+# kvstore-merkle app (snapshot every 4 heights), an app state of 2^20 keys
+# (16-hex-char keys, 32-hex-char values) built by SEED_BLOCKS blocks, then
+# MEASURED_TXS txs at each measured height
+APPLY_VALIDATORS = 150
+STATE_KEYS = 1 << 20
+SEED_BLOCKS = 4
+MEASURED_TXS = 4096
+MEASURED = (("insert", 2), ("update", 2))
+# messages per length when the SHA-256 kernel is held against its plain
+# version (the leaf items of this state are 51 bytes with the prefix,
+# inner nodes 65)
+SHA_CHECK_N = 1 << 17
+SHA_CHECK_LENGTHS = (51, 65)
+SHA_SPEC_LENGTHS = (0, 55, 56, 63, 64, 65, 119)
+
 # Hopper (H100 SXM): INT32 lanes per SM
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
@@ -57,6 +83,15 @@ FIELD_MULS_PER_VERIFY = (7 + 262 + 6) + (14 * 9 + 64 * (4 * 8 + 9)) \
     + 64 * 7 + 9 + (265 + 2)
 PRODUCTS_PER_FIELD_MUL = 100
 
+# the fewest 32-bit integer instructions of one SHA-256 compression on
+# this ISA (a rotate is one funnel shift, a three-input xor, Ch or Maj one
+# LOP3, three addends one IADD3): 64 rounds of 14 (Sigma1 3 + 1, Ch 1,
+# T1 2, Sigma0 3 + 1, Maj 1, new a 1, new e 1), 48 schedule words of 10
+# (sigma0 3 + 1, sigma1 3 + 1, sum 2), 8 final adds. Counting each source
+# operation instead (26 a round, 13 a word) gives 2,296, which the kernel
+# beats: ptxas fuses them.
+SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
+
 TPU_KERNELS = {
     "ed25519_verify_dense": (
         "tendermint_tpu/crypto/ed25519_jax/verify.py:83 (_verify_kernel, "
@@ -66,6 +101,8 @@ TPU_KERNELS = {
         "(_verify_sparse_stream_kernel + _assemble_blocks, K7)"),
     "probe_sum_u8": "tendermint_tpu/crypto/batch.py:75 (device_threshold "
                     "probe, K11)",
+    "sha256_many": "tendermint_tpu/crypto/merkle_fast.py:122 (_device_fn, "
+                   "K9)",
 }
 SOURCES = {
     "ed25519_verify_dense":
@@ -73,6 +110,7 @@ SOURCES = {
     "ed25519_verify_sparse":
         "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/verify.cu",
     "probe_sum_u8": "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/probe.cu",
+    "sha256_many": "tendermint_tpu_torch/crypto/merkle_cuda/csrc/sha256.cu",
 }
 
 
@@ -152,7 +190,7 @@ def _nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run(dev, smi: str, int32_peak: float) -> dict:
+def run(dev, smi: str, int32_peak: float, signer) -> dict:
     """Phases 2-4 on ``dev``; returns the kernels' JSON records. Raises on
     any failed check."""
     import numpy as np
@@ -181,19 +219,18 @@ def run(dev, smi: str, int32_peak: float) -> dict:
     # -- seeded keys, commits and signatures ---------------------------------
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    with commits.Signer() as signer:
-        small = commits.CommitFixture(signer, rng, N_SMALL, CHAIN_ID, 7)
-        big = commits.CommitFixture(signer, rng, N_BIG, CHAIN_ID, 9)
-        seeds_stream = commits.seeds(rng, 64)
-        pubs_stream = signer.pubkeys(seeds_stream)
-        stream_jobs = [(seeds_stream[i % 64],
-                        bytes(rng.integers(0, 256, 110, dtype="uint8")))
-                       for i in range(N_STREAM)]
-        short_jobs = [(seeds_stream[i % 64],
-                       bytes(rng.integers(0, 256, 1 + i % 40, dtype="uint8")))
-                      for i in range(256)]
-        sigs = signer.sign(stream_jobs + short_jobs)
-        workers = signer.workers
+    small = commits.CommitFixture(signer, rng, N_SMALL, CHAIN_ID, 7)
+    big = commits.CommitFixture(signer, rng, N_BIG, CHAIN_ID, 9)
+    seeds_stream = commits.seeds(rng, 64)
+    pubs_stream = signer.pubkeys(seeds_stream)
+    stream_jobs = [(seeds_stream[i % 64],
+                    bytes(rng.integers(0, 256, 110, dtype="uint8")))
+                   for i in range(N_STREAM)]
+    short_jobs = [(seeds_stream[i % 64],
+                   bytes(rng.integers(0, 256, 1 + i % 40, dtype="uint8")))
+                  for i in range(256)]
+    sigs = signer.sign(stream_jobs + short_jobs)
+    workers = signer.workers
     say(f"phase sign: {N_SMALL + N_BIG + 64} keys, "
         f"{N_SMALL + N_BIG + len(sigs)} signatures with {workers} workers in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -433,6 +470,315 @@ def run(dev, smi: str, int32_peak: float) -> dict:
     return {"kernels": kernels, "verify_commit_sigs_per_s": rates}
 
 
+# --- SHA-256 (K9) -------------------------------------------------------------
+
+def _sha_bound(shapes, int32_peak):
+    """Least time for the SHA-256 of the (n, L) batches in ``shapes``: the
+    compressions' integer operations over the INT32 rate, or each input
+    byte read once and each digest written once over the memory rate."""
+    from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as S
+
+    ops = sum(n * S.n_blocks(length) for n, length in shapes) \
+        * SHA256_OPS_PER_COMPRESSION
+    nbytes = sum(n * (length + 32) for n, length in shapes)
+    ops_s, bytes_s = ops / int32_peak, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def sha256_check(dev, n=SHA_CHECK_N) -> int:
+    """Phase kernels for K9: the kernel equals its plain version on ``n``
+    messages at each main-path length, and hashlib on a sample of lengths
+    around the block boundaries. Returns the largest byte difference."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as S
+
+    rng = np.random.default_rng(SEED + 1)
+    err = 0
+    for length in SHA_CHECK_LENGTHS:
+        x = torch.from_numpy(rng.integers(0, 256, (n, length),
+                                          dtype=np.uint8)).to(dev)
+        k, p = S.sha256_many(x), S.sha256_many_plain(x)
+        err = max(err, int((k.to(torch.int16) - p.to(torch.int16))
+                           .abs().max().item()))
+        if not torch.equal(k, p):
+            bad = torch.nonzero((k != p).any(dim=1)).flatten()[:20]
+            raise AssertionError(f"sha256_many != plain at L={length}, rows "
+                                 f"{bad.tolist()}")
+    for length in SHA_SPEC_LENGTHS:
+        raw = rng.integers(0, 256, (64, length), dtype=np.uint8)
+        got = S.sha256_many(torch.from_numpy(raw).to(dev)).cpu().numpy()
+        want = b"".join(hashlib.sha256(raw[i].tobytes()).digest()
+                        for i in range(64))
+        if got.tobytes() != want:
+            raise AssertionError(f"sha256_many != hashlib at L={length}")
+    say(f"phase kernels: sha256_many == plain on {n} messages at L "
+        f"{list(SHA_CHECK_LENGTHS)}, == hashlib at L "
+        f"{list(SHA_SPEC_LENGTHS)}")
+    return err
+
+
+def sha256_times(dev, smi: str, int32_peak: float, launches: int,
+                 err: int) -> dict:
+    """K9 at the full rebuild's shapes: the 2^20 leaf launch, the 2^14
+    inner launch, and the 7 launches of one rebuild of a 2^20-key tree.
+    The leaf launch is also held against the plain version, digest by
+    digest."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as S
+
+    rng = np.random.default_rng(SEED + 3)
+    levels = [(STATE_KEYS, 51)] + [(STATE_KEYS >> i, 65)
+                                   for i in range(1, 7)]
+    xs = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+          .to(dev) for shape in levels]
+    leaf_ms = _time_ms(lambda: S.sha256_many(xs[0]), dev, 20)
+    small_ms = _time_ms(lambda: S.sha256_many(xs[-1]), dev, 50)
+    full_ms = _time_ms(lambda: [S.sha256_many(x) for x in xs], dev, 10)
+    # the plain version's first run is its timing's warm-up
+    k, p = S.sha256_many(xs[0]), S.sha256_many_plain(xs[0])
+    err = max(err, int((k.to(torch.int16) - p.to(torch.int16))
+                       .abs().max().item()))
+    if not torch.equal(k, p):
+        bad = torch.nonzero((k != p).any(dim=1)).flatten()[:20]
+        raise AssertionError(f"sha256_many != plain at {levels[0]}, rows "
+                             f"{bad.tolist()}")
+    plain_ms = _time_ms(lambda: S.sha256_many_plain(xs[0]), dev, 1, 0)
+    bound, by = _sha_bound(levels[:1], int32_peak)
+    full_bound, _ = _sha_bound(levels, int32_peak)
+    crossover = sha256_route_times(dev, smi)
+    say(f"times: sha256_many {levels[0][0]} x {levels[0][1]} B: "
+        f"{leaf_ms:.4f} ms, == plain (plain {plain_ms:.2f} ms, bound "
+        f"{bound:.4f} ms by {by}); {levels[-1][0]} x 65 B: {small_ms:.4f} ms; a full "
+        f"rebuild's {len(levels)} launches: {full_ms:.4f} ms (bound "
+        f"{full_bound:.4f} ms) ({smi})")
+    return {"name": "sha256_many",
+            "shape": f"{levels[0][0]} messages x {levels[0][1]} bytes",
+            "launches": launches, "max_abs_err": err, "ms": leaf_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "route": "cuda",
+            "source": SOURCES["sha256_many"],
+            "replaces": TPU_KERNELS["sha256_many"], "ms_2e14_x_65": small_ms,
+            "ms_full_rebuild": full_ms, "bound_ms_full_rebuild": full_bound,
+            "launches_per_full_rebuild": len(levels),
+            "route_ms_65B": crossover}
+
+
+def sha256_route_times(dev, smi: str) -> dict:
+    """Host-clock ms of one tree level of n inner nodes (65 bytes) through
+    each route of crypto/merkle.py: the hashlib loop and the device (join,
+    pinned upload, kernel, fetch, split), for the crossover against
+    TMTPU_MERKLE_DEVICE_MIN."""
+    import os
+
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.crypto import merkle_fast as mf
+
+    out = {}
+    for n in (256, 1024, 4096, 16384, 65536):
+        msgs = [os.urandom(65) for _ in range(n)]
+        reps = max(3, 65536 // n)
+        hashlib_ms = _wall_s(lambda: [merkle.inner_hash(m[1:33], m[33:])
+                                      for m in msgs], reps) * 1e3
+        dev_ms = _wall_s(lambda: mf.sha256_many_device(msgs, dev),
+                         reps) * 1e3
+        out[str(n)] = {"hashlib": hashlib_ms, "device": dev_ms}
+        say(f"times: a level of {n} inner nodes: hashlib {hashlib_ms:.3f} "
+            f"ms, device {dev_ms:.3f} ms ({smi})")
+    return out
+
+
+# --- 5. block execution -------------------------------------------------------
+
+def run_apply(dev, smi: str, signer, state_keys=STATE_KEYS,
+              measured_txs=MEASURED_TXS) -> dict:
+    """Phase apply: a 150-validator chain with the Merkle kvstore app, seeded
+    to ``state_keys`` keys, then the measured heights. Returns the
+    per-height records and the main path's launches. Raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.abci.example.kvstore import \
+        MerkleKVStoreApplication
+    from tendermint_tpu_torch.crypto import Ed25519PubKey
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto import merkle, phases
+    from tendermint_tpu_torch.crypto.breaker import device_breaker
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as S
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.state import (BlockExecutor, StateStore,
+                                            state_from_genesis)
+    from tendermint_tpu_torch.state.execution import (EmptyEvidencePool,
+                                                      NoOpMempool)
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types import (BlockID, GenesisDoc,
+                                            GenesisValidator)
+    from tendermint_tpu_torch.types.block import Commit
+
+    rng = np.random.default_rng(SEED + 2)
+    t0 = time.perf_counter()
+    seeds = commits.seeds(rng, APPLY_VALIDATORS)
+    pubs = signer.pubkeys(seeds)
+    seed_of = {Ed25519PubKey(p).address(): s for s, p in zip(seeds, pubs)}
+    genesis = GenesisDoc(
+        chain_id=CHAIN_ID, genesis_time_ns=commits.BASE_TIME_S * 10**9,
+        validators=[GenesisValidator(Ed25519PubKey(p), 10) for p in pubs])
+    app = MerkleKVStoreApplication(interval=4)
+    conns = AppConns(local_client_creator(app))
+    conns.start()
+    state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+    executor = BlockExecutor(state_store, conns.consensus, NoOpMempool(),
+                             EmptyEvidencePool(), block_store)
+    chain = {"state": state_from_genesis(genesis),
+             "last": Commit(0, 0, BlockID(), []), "keys": []}
+    state_store.save(chain["state"])
+
+    def new_txs(n):
+        kh, vh = rng.bytes(8 * n).hex(), rng.bytes(16 * n).hex()
+        keys = [kh[16 * i:16 * i + 16] for i in range(n)]
+        chain["keys"].extend(keys)
+        return [f"{k}={vh[32 * i:32 * i + 32]}".encode()
+                for i, k in enumerate(keys)]
+
+    def update_txs(n):
+        keys = chain["keys"]
+        vh = rng.bytes(16 * n).hex()
+        return [f"{keys[j]}={vh[32 * i:32 * i + 32]}".encode() for i, j in
+                enumerate(rng.choice(len(keys), n, replace=False))]
+
+    def apply(h, txs):
+        state = chain["state"]
+        proposer = state.validators.get_proposer().address
+        block, parts = state.make_block(h, txs, chain["last"], [], proposer)
+        bid = BlockID(block.hash(), parts.header())
+        t = time.perf_counter()
+        chain["state"], _ = executor.apply_block(state, bid, block)
+        wall = time.perf_counter() - t
+        stamps = [block.header.time_ns + 1_000_000 * (i + 1)
+                  for i in range(state.validators.size())]
+        chain["last"] = commits.sign_commit(signer, seed_of,
+                                            state.validators, CHAIN_ID, h,
+                                            bid, stamps)
+        block_store.save_block(block, parts, chain["last"])
+        seg = [r for r in phases.recent_segments()
+               if r["plane"] == "exec"][-1]
+        return wall, len(parts.get_reader()), seg
+
+    per_block = state_keys // SEED_BLOCKS
+    for h in range(1, SEED_BLOCKS + 1):
+        t = time.perf_counter()
+        txs = new_txs(per_block)
+        wall, size, seg = apply(h, txs)
+        say(f"phase apply: seed height {h}: {per_block} txs, block "
+            f"{size / 1e6:.1f} MB, apply_block {wall:.2f} s = validate "
+            f"{seg['pack_s']:.2f} + execute {seg['dispatch_s']:.2f} + "
+            f"commit+persist {seg['fetch_s']:.2f} (height "
+            f"{time.perf_counter() - t:.2f} s with tx generation, block "
+            f"making, signing and storing)")
+    say(f"phase apply: {len(app.state)} keys seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    root_s = []
+    imt_root = app._imt.root
+
+    def timed_root(*args, **kw):
+        t = time.perf_counter()
+        out = imt_root(*args, **kw)
+        root_s.append(time.perf_counter() - t)
+        return out
+
+    app._imt.root = timed_root
+    # device time of every SHA-256 launch: CUDA events around the wrapper
+    # (merkle_fast calls it through the module, so it finds this one)
+    kernel_events = []
+    sha256_many = S.sha256_many
+
+    def timed_sha256_many(x):
+        if x.device.type != "cuda":
+            return sha256_many(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sha256_many(x)
+        end.record()
+        kernel_events.append((start, end))
+        return out
+
+    S.sha256_many = timed_sha256_many
+    V.reset_launches()
+    S.reset_launches()
+    errors0 = B.stats["device_errors"]
+    heights = []
+    h = SEED_BLOCKS
+    for kind, count in MEASURED:
+        for _ in range(count):
+            h += 1
+            txs = (new_txs if kind == "insert" else update_txs)(measured_txs)
+            phases.reset()
+            kernel_events.clear()
+            tiers0 = dict(merkle.stats)
+            launches0 = S.launches["sha256_many"]
+            root_s.clear()
+            wall, _, seg = apply(h, txs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            kernel_ms = sum(a.elapsed_time(b) for a, b in kernel_events)
+            rec = {"height": h, "kind": kind, "txs": len(txs),
+                   "apply_ms": wall * 1e3,
+                   "validate_ms": seg["pack_s"] * 1e3,
+                   "execute_ms": seg["dispatch_s"] * 1e3,
+                   "commit_persist_ms": seg["fetch_s"] * 1e3,
+                   "merkle_root_ms": sum(root_s) * 1e3,
+                   "kernel_ms": kernel_ms,
+                   "launches": S.launches["sha256_many"] - launches0,
+                   "tiers": {k: merkle.stats[k] - tiers0[k]
+                             for k in ("device", "hashlib")}}
+            heights.append(rec)
+            say(f"phase apply: height {h} ({kind}, {len(txs)} txs, "
+                f"{len(app.state)} keys): apply_block {rec['apply_ms']:.1f} "
+                f"ms = validate {rec['validate_ms']:.1f} + execute "
+                f"{rec['execute_ms']:.1f} + commit+persist "
+                f"{rec['commit_persist_ms']:.1f}; merkle root "
+                f"{rec['merkle_root_ms']:.1f} ms, sha256_many "
+                f"{rec['kernel_ms']:.3f} ms in {rec['launches']} launches; "
+                f"messages by tier {rec['tiers']} ({smi})")
+            if kind == "insert" and rec["launches"] == 0:
+                raise AssertionError(f"height {h}: sha256_many never "
+                                     "launched on a full rebuild")
+    app._imt.root = imt_root
+    S.sha256_many = sha256_many
+    launches = {"sha256_many": S.launches["sha256_many"],
+                **{k: n for k, n in V.launches.items()}}
+    say(f"phase apply: launches {launches}")
+    if launches["sha256_many"] == 0 or launches["ed25519_verify_dense"] == 0:
+        raise AssertionError(f"the apply path never launched a kernel: "
+                             f"{launches}")
+    if B.stats["device_errors"] != errors0 or device_breaker.state != "closed":
+        raise AssertionError(f"device errors: verify {B.stats}, breaker "
+                             f"{device_breaker.state}")
+    t = time.perf_counter()
+    spec = merkle.hash_from_byte_slices(
+        MerkleKVStoreApplication._leaf_items(app.state))
+    if chain["state"].app_hash != spec:
+        raise AssertionError(f"app hash {chain['state'].app_hash.hex()} != "
+                             f"the recursive spec {spec.hex()}")
+    say(f"phase apply: app hash {spec.hex()} == the recursive hashlib spec "
+        f"over {len(app.state)} keys ({time.perf_counter() - t:.1f} s)")
+    return {"heights": heights, "launches": launches,
+            "state_keys": len(app.state)}
+
+
+
 def main() -> int:
     if not (ROOT / "tendermint_tpu_torch" / "crypto" / "ed25519_cuda"
             / "csrc" / "verify.cu").is_file():
@@ -445,7 +791,10 @@ def main() -> int:
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from tendermint_tpu_torch.crypto.ed25519_cuda import build
+    from tendermint_tpu_torch.crypto import cuda_build
+    from tendermint_tpu_torch.crypto.ed25519_cuda import build as ed_build
+    from tendermint_tpu_torch.crypto.merkle_cuda import build as sha_build
+    from tendermint_tpu_torch.tools import commits
 
     t_start = time.perf_counter()
     # -- 1. card --------------------------------------------------------------
@@ -458,22 +807,30 @@ def main() -> int:
         f"SM clock {max_sm_mhz} MHz")
     say(smi)
     t0 = time.perf_counter()
-    build.build_all()
-    for lib in build.SOURCES:
-        build.library(lib)
-    for lib, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"ptxas {lib}: {line.strip()}")
+    pkgs = (ed_build.PACKAGE, sha_build.PACKAGE)
+    cuda_build.build_all(*pkgs)  # one nvcc per source
+    for pkg in pkgs:
+        for lib in pkg.sources:
+            pkg.library(lib)
+        for lib, log in pkg.build_logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"ptxas {lib}: {line.strip()}")
     say(f"phase card: kernels built in {time.perf_counter() - t0:.1f} s")
     int32_peak = (props.multi_processor_count * INT32_LANES_PER_SM
                   * max_sm_mhz * 1e6)
 
-    result = run(dev, smi, int32_peak)
+    with commits.Signer() as signer:
+        result = run(dev, smi, int32_peak, signer)
+        sha_err = sha256_check(dev)
+        apply = run_apply(dev, smi, signer)
+    result["kernels"].append(sha256_times(
+        dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
     say(f"card and power limit: {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"verify_commit_sigs_per_s":
-                    result["verify_commit_sigs_per_s"], "card": smi}))
+                    result["verify_commit_sigs_per_s"],
+                    "apply_block": apply["heights"], "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

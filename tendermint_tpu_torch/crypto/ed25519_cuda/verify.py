@@ -116,7 +116,7 @@ def verify_dense(blocks: torch.Tensor, nblk: torch.Tensor,
     if dev.type == "cpu":
         return verify_dense_plain(blocks, nblk, s_words, table)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
-    lib = build.library("verify")
+    lib = build.PACKAGE.library("verify")
     rc = lib.tm_ed25519_verify_dense(
         blocks.data_ptr(), nblk.data_ptr(), s_words.data_ptr(),
         table.data_ptr(), out.data_ptr(), n, nb, _stream_ptr(dev))
@@ -152,7 +152,7 @@ def verify_sparse(templates: torch.Tensor, cols: torch.Tensor,
         return verify_sparse_plain(templates, cols, diff_vals, mlen, r, a, s,
                                    chunk, table)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
-    lib = build.library("verify")
+    lib = build.PACKAGE.library("verify")
     rc = lib.tm_ed25519_verify_sparse(
         templates.data_ptr(), mlen_max, cols.data_ptr(), c,
         diff_vals.data_ptr(), mlen.data_ptr(), r.data_ptr(), a.data_ptr(),
@@ -171,7 +171,7 @@ def probe_sum(x: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return probe_sum_plain(x)
     out = torch.empty(1, dtype=torch.int32, device=dev)
-    lib = build.library("probe")
+    lib = build.PACKAGE.library("probe")
     rc = lib.tm_probe_sum_u8(x.data_ptr(), x.numel(), out.data_ptr(),
                              _stream_ptr(dev))
     _launch_check(rc, "probe_sum_u8")
@@ -835,7 +835,7 @@ def kernel_device() -> torch.device:
     not build or load."""
     dev = default_device()
     if dev.type == "cuda":
-        build.library("verify")
+        build.PACKAGE.library("verify")
     return dev
 
 

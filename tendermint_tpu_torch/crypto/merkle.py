@@ -83,27 +83,82 @@ def hash_from_byte_slices(items: Sequence[bytes]) -> bytes:
     return level[0]
 
 
-# --- level-wise hashing + incremental roots (app-hash merkle) --------------
+# --- vectorized fast path + incremental roots (app-hash merkle) -------------
 #
-# MerkleKVStoreApplication recomputes its root every commit. IncrementalMerkle
-# keeps a cached level structure patched along the paths of dirty leaves, so
-# commit cost scales with writes, not state size; byte-identical to
-# hash_from_byte_slices.
+# MerkleKVStoreApplication recomputes its root every commit; at real state
+# sizes that is the execution plane's commit bottleneck. Two escapes, both
+# byte-identical to hash_from_byte_slices (differential-tested):
 #
-# Host route only in this port: the batched numpy / device SHA-256 routes
-# of the JAX package (crypto/merkle_fast.py, its device kernel K9) are
-# queued for a later slice, so every level hashes with hashlib.
+#  * batched hashing — one tree level's nodes are equal-length messages
+#    (inner nodes always 65 bytes), so a wide level is one launch of the
+#    hand-written SHA-256 kernel (K9) through crypto/merkle_fast.py.
+#  * IncrementalMerkle — a cached level structure patched along the paths
+#    of dirty leaves, so commit cost scales with writes, not state size.
+#
+# TMTPU_MERKLE_FAST=0 disables batching (hashlib everywhere);
+# TMTPU_MERKLE_DEVICE_MIN sets the narrowest level sent to the device.
+#
+# The JAX package has a numpy tier between the two and falls back to it on
+# any device exception. The port has neither: numpy was slower than
+# hashlib at every level width on the H100's host (PERF.md), and a level
+# the device route takes is hashed on the card or raises — KernelUnavailable
+# (no card while the default device is cuda, a kernel that does not build
+# or load) and every fault of a running kernel reach the caller.
+
+import os as _os
+
+from . import merkle_fast as _mf
+
+#: messages hashed by each route
+stats = {"hashlib": 0, "device": 0}
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(_os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _batch_sha256(msgs: List[bytes]) -> Optional[List[bytes]]:
+    """Hash n equal-length messages on the device when the level is wide
+    enough; None tells the caller to take the hashlib loop."""
+    if (_os.environ.get("TMTPU_MERKLE_FAST", "1") == "0"
+            or len(msgs) < _env_int("TMTPU_MERKLE_DEVICE_MIN", 16384)):
+        stats["hashlib"] += len(msgs)
+        return None
+    out = _mf.sha256_many_device(msgs)
+    stats["device"] += len(msgs)
+    return out
 
 
 def _leaf_hashes(items: Sequence[bytes]) -> List[bytes]:
-    return [leaf_hash(item) for item in items]
+    """Leaf level, batched per item length (one kvstore level is mostly
+    homogeneous; stragglers take the hashlib path)."""
+    out: List[Optional[bytes]] = [None] * len(items)
+    by_len: dict = {}
+    for i, item in enumerate(items):
+        by_len.setdefault(len(item), []).append(i)
+    for idxs in by_len.values():
+        hashed = _batch_sha256([LEAF_PREFIX + items[i] for i in idxs])
+        if hashed is None:
+            for i in idxs:
+                out[i] = leaf_hash(items[i])
+        else:
+            for j, i in enumerate(idxs):
+                out[i] = hashed[j]
+    return out
 
 
 def _inner_level(level: List[bytes]) -> List[bytes]:
     """One reduction step: pair-adjacent inner hashes, odd node promoted
     (same scheme as hash_from_byte_slices)."""
-    nxt = [inner_hash(level[2 * i], level[2 * i + 1])
-           for i in range(len(level) // 2)]
+    pairs = [INNER_PREFIX + level[2 * i] + level[2 * i + 1]
+             for i in range(len(level) // 2)]
+    nxt = _batch_sha256(pairs)
+    if nxt is None:
+        nxt = [inner_hash(level[2 * i], level[2 * i + 1])
+               for i in range(len(level) // 2)]
     if len(level) % 2:
         nxt.append(level[-1])
     return nxt

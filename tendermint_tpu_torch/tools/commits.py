@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -73,6 +73,22 @@ def seeds(rng: np.random.Generator, n: int) -> List[bytes]:
             for _ in range(n)]
 
 
+def sign_commit(signer: Signer, seed_of: Dict[bytes, bytes],
+                valset: ValidatorSet, chain_id: str, height: int,
+                block_id: BlockID, timestamps: Sequence[int]) -> Commit:
+    """The commit of ``block_id`` at ``height`` in which every member of
+    ``valset`` signed its precommit at its own timestamp; ``seed_of`` maps
+    a validator address to its key seed."""
+    jobs = [(seed_of[v.address],
+             vote_sign_bytes(chain_id, SignedMsgType.PRECOMMIT, height, 0,
+                             block_id, t))
+            for v, t in zip(valset.validators, timestamps)]
+    sigs = signer.sign(jobs)
+    return Commit(height, 0, block_id,
+                  [CommitSig(BlockIDFlag.COMMIT, v.address, t, s)
+                   for v, t, s in zip(valset.validators, timestamps, sigs)])
+
+
 class CommitFixture:
     """A validator set of equal power and a commit in which every validator
     signed the block, built from ``rng``: ``valset``, ``commit``,
@@ -91,13 +107,10 @@ class CommitFixture:
             PartSetHeader(1, bytes(rng.integers(0, 256, 32, dtype=np.uint8))))
         self.timestamps = [BASE_TIME_S * 10**9 + int(x) for x in
                            rng.integers(300_000_000, 999_999_999, n)]
-        jobs = [(seed_of[v.address],
-                 vote_sign_bytes(chain_id, SignedMsgType.PRECOMMIT, height, 0,
-                                 self.block_id, t))
-                for v, t in zip(vs.validators, self.timestamps)]
         self.valset, self.chain_id, self.height = vs, chain_id, height
-        self.sigs = signer.sign(jobs)
-        self.commit = self.with_signatures(self.sigs)
+        self.commit = sign_commit(signer, seed_of, vs, chain_id, height,
+                                  self.block_id, self.timestamps)
+        self.sigs = [cs.signature for cs in self.commit.signatures]
 
     def with_signatures(self, sigs: Sequence[bytes]) -> Commit:
         return Commit(self.height, 0, self.block_id,

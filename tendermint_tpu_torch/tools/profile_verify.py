@@ -104,8 +104,8 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    for lib in build.SOURCES:
-        build.library(lib)
+    for lib in build.PACKAGE.sources:
+        build.PACKAGE.library(lib)
     rng = np.random.default_rng(args.seed)
     with commits.Signer() as signer:
         fixtures = [commits.CommitFixture(signer, rng, int(n), CHAIN_ID, 5)

@@ -1,9 +1,11 @@
 """Domain types (the reference's types/ tier, SURVEY.md §2.2).
 
-This slice of the port carries what commit verification needs: BlockID,
-Validator/ValidatorSet, Vote, Header, Commit/CommitSig and the canonical
-sign-bytes. The rest of types/ (vote_set, evidence, genesis, part_set,
-params, ...) comes with the next slice.
+Byte-identical wire artifacts: canonical sign-bytes, header/commit/validator-set
+merkle hashes all match Tendermint v0.34.24 (reference types/canonical.go,
+types/block.go:440, types/validator.go:117). Time is integer unix-nanoseconds
+throughout (Go time.Time parity incl. the year-1 zero value).
+
+Not ported yet: vote_set, the proposal and the private validators.
 """
 
 from .basic import (  # noqa: F401
@@ -16,4 +18,18 @@ from .basic import (  # noqa: F401
 from .validator import Validator, new_validator  # noqa: F401
 from .validator_set import ValidatorSet  # noqa: F401
 from .vote import Vote  # noqa: F401
-from .block import Commit, CommitSig, Header  # noqa: F401
+from .block import Block, Commit, CommitSig, Data, Header  # noqa: F401
+from .part_set import Part, PartSet  # noqa: F401
+from .params import ConsensusParams, default_consensus_params  # noqa: F401
+from .evidence import (  # noqa: F401
+    DuplicateVoteEvidence,
+    Evidence,
+    LightClientAttackEvidence,
+)
+from .genesis import GenesisDoc, GenesisValidator  # noqa: F401
+from .errors import (  # noqa: F401
+    ErrInvalidCommitHeight,
+    ErrInvalidCommitSignatures,
+    ErrNotEnoughVotingPowerSigned,
+    ErrVoteInvalidSignature,
+)

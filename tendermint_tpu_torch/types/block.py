@@ -1,7 +1,5 @@
-"""Header, Commit, CommitSig (reference types/block.go).
-
-This slice of the port carries the commit-verification types only; Block,
-Data and BlockMeta come with the rest of types/.
+"""Block, Header, Commit, CommitSig, Data, BlockMeta (reference
+types/block.go).
 
 Header.Hash merkle-izes the 14 proto-encoded fields (block.go:440-475);
 Commit.Hash merkle-izes CommitSig proto encodings (block.go:894-912);
@@ -24,6 +22,7 @@ from .canonical import (
     vote_sign_bytes_batch,
     vote_sign_bytes_columns_batch,
 )
+from .tx import txs_hash
 from .vote import MAX_SIGNATURE_SIZE, Vote
 
 # Protocol versions (reference version/version.go:16-22).
@@ -531,3 +530,163 @@ class AggregatedCommit(Commit):
         w.bytes(6, self.agg_sig)
         w.varint(7, self.timestamp_ns)
         return w.finish()
+
+
+@dataclass
+class Data:
+    txs: List[bytes] = field(default_factory=list)
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = txs_hash(self.txs)
+        return self._hash
+
+    def encode(self) -> bytes:
+        w = pw.Writer()
+        for tx in self.txs:
+            w.bytes(1, tx) if tx else w.message(1, b"")
+        return w.finish()
+
+    @staticmethod
+    def decode(data: bytes) -> "Data":
+        txs = [v for fn, _wt, v in pw.iter_fields(data) if fn == 1]
+        return Data(txs=list(txs))
+
+
+@dataclass
+class Block:
+    header: Header
+    data: Data
+    evidence: List = field(default_factory=list)  # List[Evidence]
+    last_commit: Optional[Commit] = None
+
+    def hash(self) -> Optional[bytes]:
+        if self.last_commit is None and self.header.height > 1:
+            return None
+        self.fill_header()
+        return self.header.hash()
+
+    def fill_header(self) -> None:
+        """Populate derived header hashes (block.go fillHeader)."""
+        if not self.header.last_commit_hash and self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash()
+        if not self.header.evidence_hash:
+            from .evidence import evidence_list_hash
+
+            self.header.evidence_hash = evidence_list_hash(self.evidence)
+
+    def validate_basic(self) -> None:
+        self.header.validate_basic()
+        if self.last_commit is None:
+            if self.header.height > 1:
+                raise ValueError("nil LastCommit")
+        else:
+            self.last_commit.validate_basic()
+            if self.header.last_commit_hash != self.last_commit.hash():
+                raise ValueError(
+                    f"wrong Header.LastCommitHash. Expected "
+                    f"{self.last_commit.hash().hex().upper()}, got "
+                    f"{self.header.last_commit_hash.hex().upper()}"
+                )
+        if self.header.data_hash != self.data.hash():
+            raise ValueError("wrong Header.DataHash")
+        from .evidence import evidence_list_hash
+
+        if self.header.evidence_hash != evidence_list_hash(self.evidence):
+            raise ValueError("wrong Header.EvidenceHash")
+
+    def make_part_set(self, part_size: int = 65536):
+        """Memoized: the sync/consensus paths build the part set of the same
+        block several times (gossip entries, store save, proposal); encoding
+        a 1000-signature block costs tens of ms, so rebuild only when asked
+        for a different part size. Blocks are frozen once assembled (the
+        memo key includes nothing mutable: fill_header() is idempotent)."""
+        cached = self.__dict__.get("_part_set_cache")
+        if cached is not None and cached[0] == part_size:
+            return cached[1]
+        from .part_set import PartSet
+
+        self.fill_header()
+        ps = PartSet.from_data(self.encode(), part_size)
+        self.__dict__["_part_set_cache"] = (part_size, ps)
+        return ps
+
+    # -- proto (types/block.proto Block) ----------------------------------
+
+    def encode(self) -> bytes:
+        from .evidence import encode_evidence_list
+
+        w = pw.Writer()
+        w.message(1, self.header.encode())
+        w.message(2, self.data.encode())
+        w.message(3, encode_evidence_list(self.evidence))
+        if self.last_commit is not None:
+            w.message(4, self.last_commit.encode())
+        return w.finish()
+
+    @staticmethod
+    def decode(data: bytes) -> "Block":
+        from .evidence import decode_evidence_list
+
+        header = Header()
+        blk_data = Data()
+        evidence: List = []
+        last_commit = None
+        for fn, _wt, v in pw.iter_fields(data):
+            if fn == 1:
+                header = Header.decode(v)
+            elif fn == 2:
+                blk_data = Data.decode(v)
+            elif fn == 3:
+                evidence = decode_evidence_list(v)
+            elif fn == 4:
+                last_commit = Commit.decode(v)
+        return Block(header, blk_data, evidence, last_commit)
+
+
+@dataclass
+class BlockMeta:
+    """Stored per height in the block store (types/block_meta.go)."""
+
+    block_id: BlockID
+    block_size: int
+    header: Header
+    num_txs: int
+
+    def encode(self) -> bytes:
+        w = pw.Writer()
+        w.message(1, self.block_id.encode())
+        w.varint(2, self.block_size)
+        w.message(3, self.header.encode())
+        w.varint(4, self.num_txs)
+        return w.finish()
+
+    @staticmethod
+    def decode(data: bytes) -> "BlockMeta":
+        block_id = BlockID()
+        header = Header()
+        block_size = num_txs = 0
+        for fn, _wt, v in pw.iter_fields(data):
+            if fn == 1:
+                block_id = BlockID.decode(v)
+            elif fn == 2:
+                block_size = pw.varint_to_int64(v)
+            elif fn == 3:
+                header = Header.decode(v)
+            elif fn == 4:
+                num_txs = pw.varint_to_int64(v)
+        return BlockMeta(block_id, block_size, header, num_txs)
+
+
+def make_block(height: int, txs: List[bytes], last_commit: Optional[Commit],
+               evidence: Optional[List] = None) -> Block:
+    """Block skeleton; header chain fields are filled by state.MakeBlock."""
+    return Block(
+        header=Header(height=height),
+        data=Data(txs=list(txs)),
+        evidence=list(evidence or []),
+        last_commit=last_commit,
+    )

@@ -9,10 +9,12 @@ root:
 
 (``--noconftest``: tests/conftest.py pins JAX to the CPU and needs jax.)
 Each kernel is held against its plain PyTorch version on the same card
-tensors, item by item, and the verdicts against the host spec
+tensors, item by item, and its results against the host spec
 (``tendermint_tpu_torch/crypto/ed25519.py``, the JAX package's spec
-copied verbatim).
+copied verbatim; hashlib for SHA-256).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -23,7 +25,9 @@ from tendermint_tpu_torch.crypto import Ed25519PubKey
 from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto.ed25519_cuda import curve as TC
+from tendermint_tpu_torch.crypto import merkle as tmerkle
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
+from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as TS
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +39,7 @@ def _card():
     dev = torch.device("cuda", 0)
     device.set_default_device(dev)
     TV.reset_launches()
+    TS.reset_launches()
     yield dev
     device.set_default_device(None)
 
@@ -142,3 +147,28 @@ def test_batch_verifier_on_card(_card):
     assert verdicts.tolist() == [ed.verify(*c) for c in cases]
     assert tbatch.stats["device_errors"] == before
     assert TV.launches["ed25519_verify_dense"] >= 1
+
+
+@pytest.mark.parametrize("length", [0, 51, 55, 56, 64, 65, 119, 300])
+def test_sha256_kernel_matches_plain_and_hashlib(_card, length):
+    rng = np.random.default_rng(length)
+    raw = rng.integers(0, 256, (3000, length), dtype=np.uint8)
+    x = torch.from_numpy(raw).to(_card)
+    got = TS.sha256_many(x)
+    torch.cuda.synchronize()
+    assert TS.launches["sha256_many"] == 1
+    assert torch.equal(got, TS.sha256_many_plain(x))
+    assert got.cpu().numpy().tobytes() == b"".join(
+        hashlib.sha256(raw[i].tobytes()).digest() for i in range(3000))
+
+
+def test_merkle_device_tier_on_card(_card, monkeypatch):
+    """crypto/merkle.py's device tier on the card: the root equals the
+    recursive hashlib spec and the kernel ran."""
+    monkeypatch.setenv("TMTPU_MERKLE_DEVICE_MIN", "64")
+    items = [b"%05d" % i for i in range(1000)]
+    before = tmerkle.stats["device"]
+    assert tmerkle.fast_hash_from_byte_slices(items) == \
+        tmerkle.hash_from_byte_slices(items)
+    assert TS.launches["sha256_many"] >= 4
+    assert tmerkle.stats["device"] > before

@@ -52,9 +52,27 @@ def test_port_imports_without_jax_or_the_jax_package():
     imported = set(out.stdout.split())
     for name in ("tendermint_tpu_torch.convert",
                  "tendermint_tpu_torch.crypto.batch",
+                 "tendermint_tpu_torch.crypto.cuda_build",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.verify",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.build",
-                 "tendermint_tpu_torch.types.validator_set"):
+                 "tendermint_tpu_torch.crypto.merkle",
+                 "tendermint_tpu_torch.crypto.merkle_fast",
+                 "tendermint_tpu_torch.crypto.merkle_cuda.sha256",
+                 "tendermint_tpu_torch.crypto.merkle_cuda.build",
+                 "tendermint_tpu_torch.libs.db",
+                 "tendermint_tpu_torch.libs.fail",
+                 "tendermint_tpu_torch.types.block",
+                 "tendermint_tpu_torch.types.evidence",
+                 "tendermint_tpu_torch.types.genesis",
+                 "tendermint_tpu_torch.types.part_set",
+                 "tendermint_tpu_torch.types.validator_set",
+                 "tendermint_tpu_torch.abci.client",
+                 "tendermint_tpu_torch.abci.example.kvstore",
+                 "tendermint_tpu_torch.proxy",
+                 "tendermint_tpu_torch.state.execution",
+                 "tendermint_tpu_torch.state.store",
+                 "tendermint_tpu_torch.state.validation",
+                 "tendermint_tpu_torch.store.block_store"):
         assert name in imported
 
 

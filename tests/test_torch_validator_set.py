@@ -280,7 +280,7 @@ def test_kernel_build_failure_raises_at_the_caller(monkeypatch, tmp_path):
     nvcc.write_text("#!/bin/sh\necho 'error: cannot compile' >&2\nexit 1\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
-    monkeypatch.setattr(TV.build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(TV.build.PACKAGE, "build_dir", tmp_path / "_build")
     monkeypatch.setattr(TV, "default_device", lambda: torch.device("cuda", 0))
     vs, privs = _make_set(8, seed=62)
     commit, bid = _make_commit(vs, privs, seed=63)
