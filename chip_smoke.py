@@ -26,6 +26,18 @@ Phases, each reported on its own line:
    execute and commit+persist, with the merkle root time and the kernel's
    device time inside commit. The last app hash must equal the recursive
    hashlib spec over the whole state.
+6. bls: aggregated BLS12-381 commits. The G2-add kernel
+   (``bls_g2_add_round``, K10) against its plain version on 4,096 lanes of
+   every lane class and against the curve spec on a sample; aggregated
+   commits of 150 and 1,000 validators through verify_commit,
+   verify_commit_light and verify_commit_light_trusting (the aggregate-
+   pubkey tree: 8 and 10 launches), three commits that must be rejected
+   (a wrong aggregate, a sub-quorum bitmap, a single signer: the one-key
+   probe); the kernel's times, the verify rate on the cuda and scalar
+   routes, and where a verify spends its time; then a 150-validator
+   bls12381 chain (proof of possession for every genesis key) applied for
+   three heights whose LastCommit is an aggregated commit made by the
+   VoteSet from 150 MockPV precommits.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It exits non-zero without CUDA or outside a checkout, and when any phase
@@ -92,6 +104,25 @@ PRODUCTS_PER_FIELD_MUL = 100
 # beats: ptxas fuses them.
 SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
 
+# aggregated BLS commits: the validator counts users run (BASELINE.json
+# config 2; bench.py::bench_aggsig's 1,000), the kernel check's lanes, and
+# a 150-validator bls12381 chain over a small app state (phase apply
+# already covers 2^20 keys)
+BLS_CHAIN_ID = "chip-smoke-bls"
+BLS_SIZES = (150, 1000)
+BLS_CHECK_LANES = 4096
+BLS_APPLY_VALIDATORS = 150
+BLS_APPLY_HEIGHTS = 3
+BLS_APPLY_TXS = 256
+# the kernel's own work: Fq products of a lane that adds two finite
+# points (44) or doubles (39), each 300 32x32->64 multiply-adds (CIOS on
+# 12 limbs), and 3 lanes of 288 bytes moved per lane (P, Q read, sum
+# written)
+FQ_MULS_ADD = 44
+FQ_MULS_DBL = 39
+PRODUCTS_PER_FQ_MUL = 300
+G2_LANE_BYTES = 288
+
 TPU_KERNELS = {
     "ed25519_verify_dense": (
         "tendermint_tpu/crypto/ed25519_jax/verify.py:83 (_verify_kernel, "
@@ -103,6 +134,9 @@ TPU_KERNELS = {
                     "probe, K11)",
     "sha256_many": "tendermint_tpu/crypto/merkle_fast.py:122 (_device_fn, "
                    "K9)",
+    "bls_g2_add_round": "tendermint_tpu/crypto/bls12381/vec.py:285 "
+                        "(_g2_add_round over g2_add_vec :227 and mont_mul "
+                        ":141, K10)",
 }
 SOURCES = {
     "ed25519_verify_dense":
@@ -111,6 +145,8 @@ SOURCES = {
         "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/verify.cu",
     "probe_sum_u8": "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/probe.cu",
     "sha256_many": "tendermint_tpu_torch/crypto/merkle_cuda/csrc/sha256.cu",
+    "bls_g2_add_round":
+        "tendermint_tpu_torch/crypto/bls12381_cuda/csrc/g2_add.cu",
 }
 
 
@@ -778,6 +814,463 @@ def run_apply(dev, smi: str, signer, state_keys=STATE_KEYS,
             "state_keys": len(app.state)}
 
 
+# --- 6. aggregated BLS commits (K10) -------------------------------------------
+
+def _g2_bound(launches, int32_peak):
+    """Least time for G2-add launches given as (lanes, adding lanes,
+    doubling lanes): the Fq products those lanes do over the INT32 rate,
+    or 3 x 288 bytes a lane over the memory rate."""
+    ops = sum(a * FQ_MULS_ADD + d * FQ_MULS_DBL for _, a, d in launches) \
+        * PRODUCTS_PER_FQ_MUL
+    nbytes = sum(3 * n * G2_LANE_BYTES for n, _, _ in launches)
+    ops_s, bytes_s = ops / int32_peak, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def _tree_launches(n):
+    """(lanes, adding lanes, 0) of each launch of an n-key tree: the
+    padded width halves each round and a lane adds two finite points
+    while both halves still hold keys."""
+    width, live, out = 2, n, []
+    while width < n:
+        width *= 2
+    while width > 1:
+        half = width // 2
+        out.append((half, max(0, live - half), 0))
+        live, width = min(live, half), half
+    return out
+
+
+def _tree(lanes, add):
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = add(lanes[:half], lanes[half:])
+    return lanes
+
+
+class _BlsTimers:
+    """Patches the routed verify's steps with timers: the K10 launches
+    (CUDA events), hash_to_g1 and the pairing (host clock)."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.crypto.bls12381 import vec as BV
+        from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as G
+
+        self.BV, self.G = BV, G
+        self.events, self.h2c_s, self.pairing_s = [], [], []
+
+    def _timed(self, fn, acc):
+        def wrapper(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            acc.append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def __enter__(self):
+        import torch
+
+        self._orig = (self.G.g2_add_round, self.BV.hash_to_g1,
+                      self.BV.multi_pairing_check)
+        add = self._orig[0]
+
+        def timed_add(p, q):
+            if p.device.type != "cuda":
+                return add(p, q)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = add(p, q)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.G.g2_add_round = timed_add
+        self.BV.hash_to_g1 = self._timed(self._orig[1], self.h2c_s)
+        self.BV.multi_pairing_check = self._timed(self._orig[2],
+                                                  self.pairing_s)
+        return self
+
+    def __exit__(self, *exc):
+        (self.G.g2_add_round, self.BV.hash_to_g1,
+         self.BV.multi_pairing_check) = self._orig
+
+    def clear(self):
+        self.events.clear()
+        self.h2c_s.clear()
+        self.pairing_s.clear()
+
+    def read(self):
+        import torch
+
+        if self.events:
+            torch.cuda.synchronize()
+        return {"apk_device_ms": sum(a.elapsed_time(b)
+                                     for a, b in self.events),
+                "hash_to_g1_ms": sum(self.h2c_s) * 1e3,
+                "pairing_ms": sum(self.pairing_s) * 1e3}
+
+
+def bls_check(dev, int32_peak) -> dict:
+    """Phase kernels for K10: the kernel equals its plain version on
+    BLS_CHECK_LANES lanes of every class, and a sample of its sums equals
+    the curve spec's. Returns the largest limb difference and the check
+    launch's numbers."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto.bls12381.curve import g2_to_affine
+    from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as G
+    from tendermint_tpu_torch.tools import g2_lanes
+
+    t0 = time.perf_counter()
+    ps, qs, kinds = g2_lanes.lane_pairs(np.random.default_rng(SEED + 4),
+                                        BLS_CHECK_LANES)
+    p, q = G.to_lanes(ps, dev), G.to_lanes(qs, dev)
+    k, pl = G.g2_add_round(p, q), G.g2_add_round_plain(p, q)
+    ki = k.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    pi = pl.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    err = int((ki - pi).abs().max().item())
+    if err:
+        bad = torch.nonzero((ki != pi).flatten(1).any(1)).flatten()[:20]
+        raise AssertionError(f"bls_g2_add_round != plain at lanes "
+                             f"{bad.tolist()} ({[kinds[i] for i in bad]})")
+    sample = [i for i in range(0, BLS_CHECK_LANES, 7)
+              if kinds[i] != "junk"]
+    out = G.from_lanes(k[:max(sample) + 1])
+    for i in sample:
+        got = None if out[i][2] == (0, 0) else g2_to_affine(out[i])
+        if got != g2_lanes.spec_sum(ps[i], qs[i]):
+            raise AssertionError(f"bls_g2_add_round lane {i} ({kinds[i]}) "
+                                 "!= the curve spec")
+    n_add = sum(kd in ("generic", "generic-z", "cancel", "junk")
+                for kd in kinds)
+    n_dbl = sum(kd in ("double", "double-z") for kd in kinds)
+    say(f"phase kernels: bls_g2_add_round == plain on {BLS_CHECK_LANES} lanes"
+        f" ({', '.join(f'{c} {kinds.count(c)}' for c in g2_lanes.CLASSES)}),"
+        f" == the curve spec on {len(sample)} ({time.perf_counter() - t0:.1f}"
+        f" s)")
+    ms = _time_ms(lambda: G.g2_add_round(p, q), dev, 20)
+    plain_ms = _time_ms(lambda: G.g2_add_round_plain(p, q), dev, 1, 0)
+    bound, by = _g2_bound([(BLS_CHECK_LANES, n_add, n_dbl)], int32_peak)
+    return {"err": err, "ms_4096_lanes": ms, "plain_ms_4096_lanes": plain_ms,
+            "bound_ms_4096_lanes": bound, "bound_by_4096_lanes": by}
+
+
+def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
+    """Phase bls, the verify half: aggregated commits of BLS_SIZES
+    validators through the three verify_commit entry points, the three
+    rejections, the kernel's times and the verify rates. Returns the
+    kernel's JSON record (its launches on this main path so far) and the
+    rates. Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto import bls12381 as bls
+    from tendermint_tpu_torch.crypto.bls12381 import vec as BV
+    from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as G
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types.errors import (
+        ErrNotEnoughVotingPowerSigned, ErrWrongSignature)
+
+    os.environ["TMTPU_BLS_BACKEND"] = "cuda"
+    rng = np.random.default_rng(SEED + 5)
+    t0 = time.perf_counter()
+    fixtures = {n: commits.BlsCommitFixture(signer, rng, n, BLS_CHAIN_ID,
+                                            100 + n) for n in BLS_SIZES}
+    say(f"phase bls: {sum(BLS_SIZES)} BLS keys with proofs of possession "
+        f"and {len(BLS_SIZES)} aggregated commits in "
+        f"{time.perf_counter() - t0:.1f} s ({signer.workers} workers)")
+    main_launches = 0
+
+    def drive(label, fn, want_launches, want_err=None):
+        nonlocal main_launches
+        G.reset_launches()
+        calls0 = BV.stats["device_calls"]
+        t = time.perf_counter()
+        err = None
+        try:
+            fn()
+        except (ErrWrongSignature, ErrNotEnoughVotingPowerSigned) as e:
+            err = e
+        dt = time.perf_counter() - t
+        n = G.launches["bls_g2_add_round"]
+        main_launches += n
+        if n == 0 or n != want_launches:
+            raise AssertionError(f"{label}: {n} K10 launches, expected "
+                                 f"{want_launches}")
+        if BV.stats["device_calls"] <= calls0:
+            raise AssertionError(f"{label}: no device call")
+        if BV.stats["device_errors"]:
+            raise AssertionError(f"{label}: device errors {BV.stats}")
+        if want_err is None and err is not None:
+            raise AssertionError(f"{label}: rejected: {err}")
+        if want_err is not None and str(err) != str(want_err):
+            raise AssertionError(f"{label}: {err!r}, expected {want_err!r}")
+        say(f"phase bls: {label}: {'rejected: ' + str(err) if err else 'ok'}"
+            f" in {dt * 1e3:.2f} ms; K10 launches {n}")
+        return dt
+
+    first_ms = {}
+    for n, fx in fixtures.items():
+        levels = len(_tree_launches(n))
+        first_ms[str(n)] = drive(f"verify_commit-{n} (first sight of its "
+                                 f"keys)", fx.verify, levels) * 1e3
+        drive(f"verify_commit-{n}", fx.verify, levels)
+        drive(f"verify_commit_light-{n}", fx.verify_light, levels)
+        drive(f"verify_commit_light_trusting-{n}", fx.verify_light_trusting,
+              levels)
+        total = fx.valset.total_voting_power()
+        needed = total * 2 // 3
+        wrong = fx.make_commit(range(n), msg=fx.message(fx.height + 1))
+        drive(f"wrong-aggregate-{n}", lambda: fx.verify(wrong), levels,
+              ErrWrongSignature(-1, wrong.agg_sig))
+        k = needed // 10
+        sub = fx.make_commit(range(k))
+        drive(f"sub-quorum-{n} ({k} signers)", lambda: fx.verify(sub),
+              len(_tree_launches(k)),
+              ErrNotEnoughVotingPowerSigned(10 * k, needed))
+        one = fx.make_commit([0])
+        drive(f"single-signer-{n} (the one-key probe)", lambda: fx.verify(one),
+              1, ErrNotEnoughVotingPowerSigned(10, needed))
+
+    # -- times ----------------------------------------------------------------
+    lanes = {}
+    for n, fx in fixtures.items():
+        affs = [bls.decompress_pubkey(v.pub_key.bytes())
+                for v in fx.valset.validators]
+        lanes[n] = BV._points_to_lanes(affs, dev)
+    first = lanes[BLS_SIZES[0]]
+    half = first.shape[0] // 2
+    p128, q128 = first[:half].contiguous(), first[half:].contiguous()
+    one_ms = _time_ms(lambda: G.g2_add_round(p128, q128), dev, 50)
+    one_plain = _time_ms(lambda: G.g2_add_round_plain(p128, q128), dev, 1, 0)
+    one_bound, _ = _g2_bound(_tree_launches(BLS_SIZES[0])[:1], int32_peak)
+    trees = {}
+    for n, ln in lanes.items():
+        ms = _time_ms(lambda: _tree(ln, G.g2_add_round), dev, 20)
+        want = {}
+        plain = _time_ms(lambda: want.update(
+            sum=_tree(ln, G.g2_add_round_plain)), dev, 1, 0)
+        got = _tree(ln, G.g2_add_round)
+        if not torch.equal(got.view(torch.int32),
+                           want["sum"].view(torch.int32)):
+            raise AssertionError(f"the {n}-key tree != its plain version")
+        bound, by = _g2_bound(_tree_launches(n), int32_peak)
+        trees[n] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": by, "launches": len(_tree_launches(n))}
+        say(f"times: bls_g2_add_round tree of {n} keys "
+            f"({trees[n]['launches']} launches): {ms:.4f} ms (plain "
+            f"{plain:.1f} ms, bound {bound:.6f} ms by {by}) ({smi})")
+    say(f"times: bls_g2_add_round one launch of {half} lanes: {one_ms:.4f} "
+        f"ms (plain {one_plain:.1f} ms, bound {one_bound:.6f} ms); library: "
+        f"none, no PyTorch call adds G2 points ({smi})")
+
+    # where an aggregated verify spends its time, and verifies per second
+    rates, breakdown = {}, {}
+    for n, fx in fixtures.items():
+        os.environ["TMTPU_BLS_BACKEND"] = "cuda"
+        pks = [v.pub_key.bytes() for v in fx.valset.validators]
+        bls._g2_cache.clear()
+        t = time.perf_counter()
+        for pk in pks:
+            bls.decompress_pubkey(pk)
+        decompress_ms = (time.perf_counter() - t) * 1e3
+        bls._c.reset_h2c_cache()
+        with _BlsTimers() as tm:
+            t = time.perf_counter()
+            fx.verify()
+            wall = (time.perf_counter() - t) * 1e3
+            cold = tm.read()
+            tm.clear()
+            fx.verify()
+            warm = tm.read()
+        apk_host_ms = _wall_s(lambda: BV.aggregate_pubkeys_vec(pks), 5) * 1e3
+        breakdown[str(n)] = {"decompress_first_sight_ms": decompress_ms,
+                             "verify_ms": wall, "apk_host_ms": apk_host_ms,
+                             "apk_device_ms": cold["apk_device_ms"],
+                             "hash_to_g1_cold_ms": cold["hash_to_g1_ms"],
+                             "hash_to_g1_warm_ms": warm["hash_to_g1_ms"],
+                             "pairing_ms": cold["pairing_ms"]}
+        say(f"times: aggregated verify_commit at {n}: first sight of the keys"
+            f" {first_ms[str(n)]:.1f} ms (decompress and subgroup checks "
+            f"alone {decompress_ms:.1f} ms); warm keys, cold hash: "
+            f"{wall:.2f} ms = apk {apk_host_ms:.2f} ms on the host clock "
+            f"({cold['apk_device_ms']:.4f} ms on the card) + hash_to_g1 "
+            f"{cold['hash_to_g1_ms']:.2f} ms + pairing "
+            f"{cold['pairing_ms']:.2f} ms ({smi})")
+        for route in ("cuda", "scalar"):
+            os.environ["TMTPU_BLS_BACKEND"] = route
+
+            def cold_apk():
+                bls._apk_cache.clear()
+                fx.verify()
+
+            def apk_only():
+                if route == "cuda":
+                    return BV.aggregate_pubkeys_vec(pks)
+                bls._apk_cache.clear()
+                return bls.aggregate_pubkeys(pks)
+
+            r = {"apk_ms": _wall_s(apk_only, 5) * 1e3,
+                 "verify_apk_cold_ms": _wall_s(cold_apk, 5) * 1e3,
+                 "verify_warm_ms": _wall_s(fx.verify, 5) * 1e3}
+            r["verifies_per_s_apk_cold"] = 1e3 / r["verify_apk_cold_ms"]
+            r["verifies_per_s_warm"] = 1e3 / r["verify_warm_ms"]
+            rates[f"{route}-{n}"] = r
+            say(f"times: verify_commit {n} on the {route} route: apk "
+                f"{r['apk_ms']:.3f} ms; verify with the apk cache cleared "
+                f"{r['verify_apk_cold_ms']:.2f} ms = "
+                f"{r['verifies_per_s_apk_cold']:.2f}/s, warm "
+                f"{r['verify_warm_ms']:.2f} ms = "
+                f"{r['verifies_per_s_warm']:.2f}/s ({smi})")
+    os.environ["TMTPU_BLS_BACKEND"] = "cuda"
+    t150 = trees[BLS_SIZES[0]]
+    record = {"name": "bls_g2_add_round", "route": "cuda",
+              "source": SOURCES["bls_g2_add_round"],
+              "replaces": TPU_KERNELS["bls_g2_add_round"],
+              "shape": f"a {BLS_SIZES[0]}-key tree: {t150['launches']} "
+                       f"launches of {half} down to 1 lanes",
+              "launches": main_launches, "ms": t150["ms"],
+              "plain_ms": t150["plain_ms"], "bound_ms": t150["bound_ms"],
+              "bound_by": t150["bound_by"], "library_ms": None,
+              "ms_one_launch_128_lanes": one_ms,
+              "plain_ms_one_launch_128_lanes": one_plain,
+              "bound_ms_one_launch_128_lanes": one_bound}
+    for n in BLS_SIZES[1:]:
+        for key in ("ms", "plain_ms", "bound_ms"):
+            record[f"{key}_tree_{n}"] = trees[n][key]
+    return {"kernel": record, "rates": rates, "breakdown": breakdown}
+
+
+def run_bls_apply(dev, smi: str, signer) -> dict:
+    """Phase bls, the apply half: a BLS_APPLY_VALIDATORS-validator bls12381
+    chain with the Merkle kvstore app; BLS_APPLY_HEIGHTS heights whose
+    LastCommit is the VoteSet's aggregated commit of every validator's
+    precommit. Returns the per-height records and the K10 launches."""
+    import numpy as np
+
+    from tendermint_tpu_torch.abci.example.kvstore import \
+        MerkleKVStoreApplication
+    from tendermint_tpu_torch.crypto import (Bls12381PrivKey,
+                                             Bls12381PubKey)
+    from tendermint_tpu_torch.crypto import bls12381 as bls
+    from tendermint_tpu_torch.crypto import merkle, phases
+    from tendermint_tpu_torch.crypto.bls12381 import vec as BV
+    from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as G
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.state import (BlockExecutor, StateStore,
+                                            state_from_genesis)
+    from tendermint_tpu_torch.state.execution import (EmptyEvidencePool,
+                                                      NoOpMempool)
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types import (BlockID, GenesisDoc,
+                                            GenesisValidator, MockPV,
+                                            SignedMsgType, Vote, VoteSet)
+    from tendermint_tpu_torch.types.block import AggregatedCommit, Commit
+    from tendermint_tpu_torch.types.params import (ConsensusParams,
+                                                   SignatureParams,
+                                                   ValidatorParams)
+
+    chain_id = BLS_CHAIN_ID + "-apply"
+    rng = np.random.default_rng(SEED + 6)
+    t0 = time.perf_counter()
+    key_seeds = commits.seeds(rng, BLS_APPLY_VALIDATORS)
+    keys = signer.bls_keys(key_seeds)
+    pvs = [MockPV(Bls12381PrivKey(bls.sk_to_bytes(bls.sk_from_seed(s))))
+           for s in key_seeds]
+    genesis = GenesisDoc(
+        chain_id=chain_id, genesis_time_ns=commits.BASE_TIME_S * 10**9,
+        consensus_params=ConsensusParams(
+            validator=ValidatorParams(["bls12381"]),
+            signature=SignatureParams("bls12381", True)),
+        validators=[GenesisValidator(Bls12381PubKey(pk), 10, pop=pop)
+                    for pk, pop in keys])
+    t1 = time.perf_counter()
+    state = state_from_genesis(genesis)
+    say(f"phase bls apply: {BLS_APPLY_VALIDATORS} keys in "
+        f"{t1 - t0:.1f} s; genesis with {BLS_APPLY_VALIDATORS} proofs of "
+        f"possession checked in {time.perf_counter() - t1:.1f} s")
+    app = MerkleKVStoreApplication(interval=4)
+    conns = AppConns(local_client_creator(app))
+    conns.start()
+    state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+    executor = BlockExecutor(state_store, conns.consensus, NoOpMempool(),
+                             EmptyEvidencePool(), block_store)
+    state_store.save(state)
+    last = Commit(0, 0, BlockID(), [])
+    heights, launches = [], 0
+    with _BlsTimers() as tm:
+        for h in range(1, BLS_APPLY_HEIGHTS + 2):
+            txs = [f"{rng.bytes(8).hex()}={rng.bytes(16).hex()}".encode()
+                   for _ in range(BLS_APPLY_TXS)]
+            block, parts = state.make_block(
+                h, txs, last, [], state.validators.get_proposer().address)
+            bid = BlockID(block.hash(), parts.header())
+            vals = state.validators
+            phases.reset()
+            tm.clear()
+            G.reset_launches()
+            errors0 = BV.stats["device_errors"]
+            t = time.perf_counter()
+            state, _ = executor.apply_block(state, bid, block)
+            wall = time.perf_counter() - t
+            n = G.launches["bls_g2_add_round"]
+            launches += n
+            seg = [r for r in phases.recent_segments()
+                   if r["plane"] == "exec"][-1]
+            rec = {"height": h, "txs": len(txs),
+                   "last_commit": type(block.last_commit).__name__,
+                   "apply_ms": wall * 1e3,
+                   "validate_ms": seg["pack_s"] * 1e3,
+                   "execute_ms": seg["dispatch_s"] * 1e3,
+                   "commit_persist_ms": seg["fetch_s"] * 1e3,
+                   "launches": n, **tm.read()}
+            heights.append(rec)
+            if h > 1 and (n != len(_tree_launches(BLS_APPLY_VALIDATORS))
+                          or not isinstance(block.last_commit,
+                                            AggregatedCommit)):
+                raise AssertionError(f"height {h}: {n} K10 launches for a "
+                                     f"{type(block.last_commit).__name__}")
+            if BV.stats["device_errors"] != errors0:
+                raise AssertionError(f"height {h}: device errors "
+                                     f"{BV.stats}")
+            t, made = time.perf_counter(), ""
+            if h <= BLS_APPLY_HEIGHTS:
+                vs = VoteSet(chain_id, h, 0, SignedMsgType.PRECOMMIT, vals)
+                for pv in pvs:
+                    addr = pv.get_pub_key().address()
+                    i, _ = vals.get_by_address(addr)
+                    v = Vote(SignedMsgType.PRECOMMIT, h, 0, bid,
+                             block.header.time_ns + 1_000_000 * (i + 1),
+                             addr, i, b"")
+                    pv.sign_vote(chain_id, v)
+                    if not vs.add_vote(v):
+                        raise AssertionError(f"height {h}: vote {i} refused")
+                last = vs.make_commit()
+                block_store.save_block(block, parts, last)
+                made = (f"; {BLS_APPLY_VALIDATORS} precommits signed, added "
+                        f"and aggregated in {time.perf_counter() - t:.1f} s")
+            say(f"phase bls apply: height {h} ({len(txs)} txs, LastCommit "
+                f"{rec['last_commit']}): apply_block {rec['apply_ms']:.1f} ms"
+                f" = validate {rec['validate_ms']:.1f} (apk "
+                f"{rec['apk_device_ms']:.4f} ms on the card in {n} launches, "
+                f"hash_to_g1 {rec['hash_to_g1_ms']:.2f} ms, pairing "
+                f"{rec['pairing_ms']:.2f} ms) + execute "
+                f"{rec['execute_ms']:.1f} + commit+persist "
+                f"{rec['commit_persist_ms']:.1f}{made} ({smi})")
+    spec = merkle.hash_from_byte_slices(
+        MerkleKVStoreApplication._leaf_items(app.state))
+    if state.app_hash != spec:
+        raise AssertionError(f"bls chain: app hash {state.app_hash.hex()} "
+                             f"!= the recursive spec {spec.hex()}")
+    say(f"phase bls apply: app hash {spec.hex()} == the recursive hashlib "
+        f"spec over {len(app.state)} keys; K10 launches {launches}")
+    return {"heights": heights, "launches": launches}
+
 
 def main() -> int:
     if not (ROOT / "tendermint_tpu_torch" / "crypto" / "ed25519_cuda"
@@ -793,6 +1286,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from tendermint_tpu_torch.crypto import cuda_build
     from tendermint_tpu_torch.crypto.ed25519_cuda import build as ed_build
+    from tendermint_tpu_torch.crypto.bls12381_cuda import build as bls_build
     from tendermint_tpu_torch.crypto.merkle_cuda import build as sha_build
     from tendermint_tpu_torch.tools import commits
 
@@ -807,7 +1301,7 @@ def main() -> int:
         f"SM clock {max_sm_mhz} MHz")
     say(smi)
     t0 = time.perf_counter()
-    pkgs = (ed_build.PACKAGE, sha_build.PACKAGE)
+    pkgs = (ed_build.PACKAGE, sha_build.PACKAGE, bls_build.PACKAGE)
     cuda_build.build_all(*pkgs)  # one nvcc per source
     for pkg in pkgs:
         for lib in pkg.sources:
@@ -824,13 +1318,28 @@ def main() -> int:
         result = run(dev, smi, int32_peak, signer)
         sha_err = sha256_check(dev)
         apply = run_apply(dev, smi, signer)
+        t_bls = time.perf_counter()
+        bls_kernel = bls_check(dev, int32_peak)
+        bls = run_bls(dev, smi, int32_peak, signer)
+        bls_apply = run_bls_apply(dev, smi, signer)
+        bls_s = time.perf_counter() - t_bls
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
+    record = bls["kernel"]
+    record["launches"] += bls_apply["launches"]
+    record["max_abs_err"] = bls_kernel.pop("err")
+    record.update(bls_kernel)
+    result["kernels"].append(record)
+    say(f"phase bls: {bls_s:.1f} s in all; K10 "
+        f"launches on the main path {record['launches']}")
     say(f"card and power limit: {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"verify_commit_sigs_per_s":
                     result["verify_commit_sigs_per_s"],
-                    "apply_block": apply["heights"], "card": smi}))
+                    "apply_block": apply["heights"],
+                    "bls_verify": bls["rates"],
+                    "bls_verify_breakdown": bls["breakdown"],
+                    "bls_apply_block": bls_apply["heights"], "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

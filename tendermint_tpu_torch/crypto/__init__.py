@@ -5,8 +5,8 @@ is the batched seam the reference lacks (SURVEY.md north star) — collect
 (pk, msg, sig) tuples, verify all at once on the card, fall back to scalar
 on the host.
 
-Ed25519 keys only in this port so far: the secp256k1, sr25519 and BLS12-381
-key types raise NotImplementedError until their slices are ported.
+Ed25519 and BLS12-381 keys; the secp256k1 and sr25519 key types raise
+NotImplementedError until their slices are ported.
 """
 
 from __future__ import annotations
@@ -61,7 +61,6 @@ class PrivKey:
 # --- ed25519 ---------------------------------------------------------------
 
 ED25519_TYPE = "ed25519"
-BLS12381_TYPE = "bls12381"
 
 try:  # OpenSSL-backed fast scalar path, if present (it is in this image)
     from cryptography.hazmat.primitives.asymmetric.ed25519 import (
@@ -140,11 +139,95 @@ class Ed25519PrivKey(PrivKey):
         return Ed25519PubKey(self.key[32:])
 
 
+# --- bls12-381 (min-sig: 96-byte G2 pubkeys, 48-byte G1 signatures) --------
+
+BLS12381_TYPE = "bls12381"
+
+
+@dataclass(frozen=True)
+class Bls12381PubKey(PubKey):
+    key: bytes  # compressed G2, 96 bytes
+    type_name = BLS12381_TYPE
+
+    def address(self) -> bytes:
+        return address_hash(self.key)
+
+    def bytes(self) -> bytes:
+        return self.key
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        from . import bls12381 as _bls
+
+        return _bls.verify(self.key, msg, sig)
+
+    def __eq__(self, other):
+        return PubKey.__eq__(self, other)
+
+    def __hash__(self):
+        return PubKey.__hash__(self)
+
+
+def _bls_pubkey_bytes(sk_bytes: bytes) -> bytes:
+    from . import bls12381 as _bls
+
+    # keyed on a digest so the module-global memo never retains raw
+    # secret-key bytes, and bounded so it cannot grow with key churn
+    memo_key = hashlib.sha256(b"tmtpu-bls-pk-memo" + sk_bytes).digest()
+    cached = _bls_pubkey_bytes._memo.get(memo_key)
+    if cached is None:  # one G2 scalar mul (~15 ms) — memoize per secret
+        if len(_bls_pubkey_bytes._memo) >= _BLS_PK_MEMO_MAX:
+            _bls_pubkey_bytes._memo.clear()
+        cached = _bls.sk_to_pk(_bls.sk_from_bytes(sk_bytes))
+        _bls_pubkey_bytes._memo[memo_key] = cached
+    return cached
+
+
+_bls_pubkey_bytes._memo = {}
+_BLS_PK_MEMO_MAX = 256
+
+
+@dataclass(frozen=True)
+class Bls12381PrivKey(PrivKey):
+    key: bytes  # scalar mod r, 32 bytes big-endian
+    type_name = BLS12381_TYPE
+
+    @staticmethod
+    def generate(seed: Optional[bytes] = None) -> "Bls12381PrivKey":
+        import os
+
+        from . import bls12381 as _bls
+
+        sk = _bls.sk_from_seed(seed if seed is not None else os.urandom(32))
+        return Bls12381PrivKey(_bls.sk_to_bytes(sk))
+
+    def bytes(self) -> bytes:
+        return self.key
+
+    def sign(self, msg: bytes) -> bytes:
+        from . import bls12381 as _bls
+
+        return _bls.sign(_bls.sk_from_bytes(self.key), msg)
+
+    def pub_key(self) -> Bls12381PubKey:
+        return Bls12381PubKey(_bls_pubkey_bytes(self.key))
+
+    def pop(self) -> bytes:
+        """Proof of possession — required to register the pubkey for
+        aggregation (see crypto/bls12381 rogue-key notes)."""
+        from . import bls12381 as _bls
+
+        return _bls.pop_prove(_bls.sk_from_bytes(self.key))
+
+
 def pubkey_from_type_and_bytes(type_name: str, b: bytes) -> PubKey:
     if type_name == ED25519_TYPE:
         if len(b) != 32:
             raise ValueError(f"ed25519 pubkey must be 32 bytes, got {len(b)}")
         return Ed25519PubKey(b)
-    if type_name in (BLS12381_TYPE, "secp256k1", "sr25519"):
+    if type_name == BLS12381_TYPE:
+        if len(b) != 96:
+            raise ValueError(f"bls12381 pubkey must be 96 bytes, got {len(b)}")
+        return Bls12381PubKey(b)
+    if type_name in ("secp256k1", "sr25519"):
         raise NotImplementedError(f"{type_name} keys: not yet ported")
     raise ValueError(f"unknown pubkey type {type_name!r}")

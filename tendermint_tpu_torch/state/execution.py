@@ -284,6 +284,7 @@ def validate_validator_updates(updates: List[abci.ValidatorUpdate],
     fast-aggregate commits, so the PoP gate that genesis enforces must also
     cover every key entering via EndBlock/InitChain."""
     from ..crypto import BLS12381_TYPE
+    from ..crypto import bls12381 as _bls
 
     for vu in updates:
         if vu.power < 0:
@@ -295,10 +296,21 @@ def validate_validator_updates(updates: List[abci.ValidatorUpdate],
                 f"validator update with pubkey {vu.pub_key_bytes.hex()} is using "
                 f"pubkey type {vu.pub_key_type}, which is unsupported for consensus")
         if vu.pub_key_type == BLS12381_TYPE:
-            # every bls12381 admission must carry a proof of possession
-            # checked by the BLS plane, which this port has not taken over
-            raise NotImplementedError(
-                "bls12381 validator updates: the BLS plane is not yet ported")
+            # Every bls12381 admission (including a power change for a
+            # sitting validator) must carry a valid PoP.  Deliberately NOT
+            # short-circuited through is_registered: that set is in-process
+            # state, and a freshly restarted node (empty set) must reach the
+            # same verdict as a long-running one.
+            if not vu.pop:
+                raise ValueError(
+                    f"bls12381 validator update {vu.pub_key_bytes.hex()} has no "
+                    f"proof of possession (rogue-key gate)")
+            if not _bls.pop_verify(vu.pub_key_bytes, vu.pop):
+                raise ValueError(
+                    f"invalid bls12381 proof of possession for validator "
+                    f"update {vu.pub_key_bytes.hex()}")
+            # vetted above — joins the aggregation-eligible set
+            _bls.register_key(vu.pub_key_bytes, vu.pop)
 
 
 def update_state(state: State, block_id: BlockID, block: Block,

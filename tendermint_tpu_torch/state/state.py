@@ -93,8 +93,8 @@ def median_time(commit: Commit, validators: ValidatorSet) -> int:
         # (a) deterministic monotonicity vs the previous block
         # (validation.validate_block) and (b) the subjective prevote-time
         # window each validator enforces against its own recorded precommit
-        # times and local clock (consensus.state.check_aggregated_commit_time,
-        # agg_commit_time_drift_s knob).
+        # times and local clock (consensus/aggregated.py
+        # check_aggregated_commit_time, agg_commit_time_drift_s knob).
         return commit.timestamp_ns
     weighted = []
     total_power = 0

@@ -31,10 +31,6 @@ P2P_PROTOCOL = 8
 
 MAX_HEADER_BYTES = 626  # types/block.go MaxHeaderBytes
 
-# BLS12-381 min-sig aggregate: one compressed G1 point (crypto/bls12381 in
-# the JAX package; the BLS plane is not yet ported)
-AGG_SIG_SIZE = 48
-
 
 def _cdc_bytes(b: bytes) -> bytes:
     """gogotypes.BytesValue wrapper, empty → empty bytes (types/encoding_helper.go:11)."""
@@ -516,9 +512,11 @@ class AggregatedCommit(Commit):
                 raise ValueError("commit cannot be for nil block")
             if self.signers.size() == 0 or self.signers.num_true() == 0:
                 raise ValueError("no signers in aggregated commit")
-            if len(self.agg_sig) != AGG_SIG_SIZE:
+            from ..crypto.bls12381 import SIG_SIZE
+
+            if len(self.agg_sig) != SIG_SIZE:
                 raise ValueError(
-                    f"aggregate signature must be {AGG_SIG_SIZE} bytes, "
+                    f"aggregate signature must be {SIG_SIZE} bytes, "
                     f"got {len(self.agg_sig)}")
 
     def encode(self) -> bytes:

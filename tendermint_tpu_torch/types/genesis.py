@@ -61,10 +61,18 @@ class GenesisDoc:
             if v.address and v.pub_key.address() != v.address:
                 raise ValueError(f"incorrect address for validator {i} in the genesis file")
             if bls_chain:
-                # key registration needs the BLS plane (proof of possession
-                # against rogue keys), which this port has not taken over
-                raise NotImplementedError(
-                    "bls12381 chains: the BLS plane is not yet ported")
+                # key registration: a BLS validator key enters the set only
+                # with a verified proof of possession (rogue-key defense)
+                if v.pub_key.type_name != "bls12381":
+                    raise ValueError(
+                        f"validator {i}: bls12381 chain requires bls12381 "
+                        f"keys, got {v.pub_key.type_name}")
+                from ..crypto import bls12381 as _bls
+
+                if not v.pop:
+                    raise ValueError(
+                        f"validator {i}: missing BLS proof of possession")
+                _bls.register_key(v.pub_key.bytes(), v.pop)
         if self.genesis_time_ns == 0:
             self.genesis_time_ns = time.time_ns()
 

@@ -42,6 +42,20 @@ def _is_aggregated(commit) -> bool:
     return hasattr(commit, "agg_sig")
 
 
+def _observe_aggregated_wire_size(commit) -> None:
+    """Feed the verified commit's encoded size into the aggregated-commit
+    wire-size histogram (telemetry only; never affects the verdict)."""
+    from ..crypto import phases as _phases
+
+    m = _phases.metrics
+    if m is None:
+        return
+    try:
+        m.aggregated_commit_bytes.observe(float(len(commit.encode())))
+    except Exception:
+        pass
+
+
 def _by_voting_power(v: Validator):
     """Sort key: power desc, address asc (reference types/validator.go ValidatorsByVotingPower)."""
     return (-v.voting_power, v.address)
@@ -471,13 +485,56 @@ class ValidatorSet:
 
     def _verify_aggregated(self, chain_id: str, commit,
                            mode: str = "full") -> None:
-        """Aggregated BLS commits need the BLS plane, which this port has
-        not taken over yet."""
-        raise NotImplementedError("aggregated BLS commits: not yet ported")
+        """One fast-aggregate-verify replaces the per-signature batch: apk
+        over the bitmap's pubkeys, pairing against the shared zero-timestamp
+        sign-bytes. Error precedence mirrors the scalar replay — shape
+        (caller), then signature (ErrWrongSignature), then the 2/3 tally
+        (ErrNotEnoughVotingPowerSigned)."""
+        from ..crypto.bls12381.vec import fast_aggregate_verify_routed
+
+        _observe_aggregated_wire_size(commit)
+        signer_idxs = commit.signers.true_indices()
+        pks = [self.validators[i].pub_key.bytes() for i in signer_idxs]
+        msg = commit.sign_message(chain_id)
+        if not fast_aggregate_verify_routed(pks, msg, commit.agg_sig,
+                                            mode=mode):
+            raise ErrWrongSignature(-1, commit.agg_sig)
+        tallied = sum(self.validators[i].voting_power for i in signer_idxs)
+        needed = self.total_voting_power() * 2 // 3
+        if tallied <= needed:
+            raise ErrNotEnoughVotingPowerSigned(tallied, needed)
 
     def _verify_aggregated_trusting(self, chain_id: str, commit, needed: int,
                                     commit_vals: "ValidatorSet") -> None:
-        raise NotImplementedError("aggregated BLS commits: not yet ported")
+        """Trusting-mode aggregate check: the pairing must run over the FULL
+        bitmap (the aggregate covers every signer), keyed by the commit
+        validator set; only the trusted intersection tallies toward the
+        trust level."""
+        from ..crypto.bls12381.vec import fast_aggregate_verify_routed
+
+        if commit_vals is None:
+            # self must BE the commit-height set then (e.g. evidence checks
+            # against the recorded set); a size mismatch means it is not
+            commit_vals = self
+        if commit_vals.size() != commit.size():
+            raise ErrInvalidCommitSignatures(commit_vals.size(), commit.size())
+        _observe_aggregated_wire_size(commit)
+        signer_idxs = commit.signers.true_indices()
+        pks = [commit_vals.validators[i].pub_key.bytes() for i in signer_idxs]
+        msg = commit.sign_message(chain_id)
+        if not fast_aggregate_verify_routed(pks, msg, commit.agg_sig,
+                                            mode="trusting"):
+            raise ErrWrongSignature(-1, commit.agg_sig)
+        addr_idx = self._addr_index()
+        tallied = 0
+        for i in signer_idxs:
+            val_idx = addr_idx.get(commit_vals.validators[i].address)
+            if val_idx is None:
+                continue
+            tallied += self.validators[val_idx].voting_power
+            if tallied > needed:
+                return
+        raise ErrNotEnoughVotingPowerSigned(tallied, needed)
 
     def _batch_verify(self, chain_id: str, commit, idxs: Sequence[int],
                       pubkeys: Optional[Sequence] = None,

@@ -259,12 +259,15 @@ def test_apply_block_matches_jax(env):
 
 
 def test_parallel_execution_and_bls_updates_are_not_ported(env):
+    """Parallel execution is still refused. bls12381 updates are ported
+    now: one without a proof of possession meets the rogue-key gate
+    (tests/test_torch_bls.py holds the gate against the JAX package)."""
     with pytest.raises(NotImplementedError, match="parallel"):
         texec.BlockExecutor(None, None, None, None,
                             exec_config=SimpleNamespace(version="v1"))
     params = ConsensusParams(validator=ValidatorParams(["ed25519",
                                                         "bls12381"]))
-    with pytest.raises(NotImplementedError, match="bls12381"):
+    with pytest.raises(ValueError, match="proof of possession"):
         texec.validate_validator_updates(
             [tabci.ValidatorUpdate("bls12381", b"\x01" * 96, 5)], params)
 

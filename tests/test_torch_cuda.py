@@ -11,7 +11,8 @@ root:
 Each kernel is held against its plain PyTorch version on the same card
 tensors, item by item, and its results against the host spec
 (``tendermint_tpu_torch/crypto/ed25519.py``, the JAX package's spec
-copied verbatim; hashlib for SHA-256).
+copied verbatim; hashlib for SHA-256; the BLS12-381 curve spec
+``crypto/bls12381/curve.py`` for the G2-add round).
 """
 
 import hashlib
@@ -28,6 +29,10 @@ from tendermint_tpu_torch.crypto.ed25519_cuda import curve as TC
 from tendermint_tpu_torch.crypto import merkle as tmerkle
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
 from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as TS
+from tendermint_tpu_torch.crypto import bls12381 as tbls
+from tendermint_tpu_torch.crypto.bls12381 import vec as tvec
+from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as TG
+from tendermint_tpu_torch.tools import g2_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +45,7 @@ def _card():
     device.set_default_device(dev)
     TV.reset_launches()
     TS.reset_launches()
+    TG.reset_launches()
     yield dev
     device.set_default_device(None)
 
@@ -172,3 +178,41 @@ def test_merkle_device_tier_on_card(_card, monkeypatch):
         tmerkle.hash_from_byte_slices(items)
     assert TS.launches["sha256_many"] >= 4
     assert tmerkle.stats["device"] > before
+
+
+def test_bls_g2_add_round_matches_plain_and_spec(_card):
+    """4,096 lanes of every class: bit-equal to the plain version, and a
+    sample equal to the curve spec's sum."""
+    ps, qs, kinds = g2_lanes.lane_pairs(np.random.default_rng(10), 4096)
+    p, q = TG.to_lanes(ps, _card), TG.to_lanes(qs, _card)
+    got = TG.g2_add_round(p, q)
+    torch.cuda.synchronize()
+    assert TG.launches["bls_g2_add_round"] == 1
+    want = TG.g2_add_round_plain(p, q)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    out = TG.from_lanes(got[:360])
+    for i in range(360):
+        if kinds[i] == "junk":
+            continue
+        s = None if out[i][2] == (0, 0) else \
+            g2_lanes.curve.g2_to_affine(out[i])
+        assert s == g2_lanes.spec_sum(ps[i], qs[i]), (i, kinds[i])
+
+
+def test_bls_aggregate_150_on_the_card_matches_the_spec(_card):
+    tbls.reset()
+    tvec.reset_stats()
+    pks = [tbls.sk_to_pk(tbls.sk_from_seed(bytes([i % 256, i // 256]) * 4))
+           for i in range(150)]
+    assert tvec.aggregate_pubkeys_vec(pks) == tbls.aggregate_pubkeys(pks)
+    assert TG.launches["bls_g2_add_round"] == 8
+    msg = b"aggregate on the card"
+    sks = [tbls.sk_from_seed(bytes([i % 256, i // 256]) * 4)
+           for i in range(150)]
+    agg = tbls.sign(sum(sks) % tbls.R, msg)
+    assert tvec.fast_aggregate_verify_routed(pks, msg, agg)
+    assert not tvec.fast_aggregate_verify_routed(pks, b"other", agg)
+    assert tvec.stats["device_calls"] == 2
+    assert tvec.stats["device_errors"] == 0
+    assert TG.launches["bls_g2_add_round"] == 24
+    tbls.reset()

@@ -51,7 +51,13 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     imported = set(out.stdout.split())
     for name in ("tendermint_tpu_torch.convert",
+                 "tendermint_tpu_torch.consensus.aggregated",
                  "tendermint_tpu_torch.crypto.batch",
+                 "tendermint_tpu_torch.crypto.bls12381",
+                 "tendermint_tpu_torch.crypto.bls12381.pairing",
+                 "tendermint_tpu_torch.crypto.bls12381.vec",
+                 "tendermint_tpu_torch.crypto.bls12381_cuda.build",
+                 "tendermint_tpu_torch.crypto.bls12381_cuda.g2",
                  "tendermint_tpu_torch.crypto.cuda_build",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.verify",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.build",
@@ -65,7 +71,12 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.types.evidence",
                  "tendermint_tpu_torch.types.genesis",
                  "tendermint_tpu_torch.types.part_set",
+                 "tendermint_tpu_torch.types.priv_validator",
+                 "tendermint_tpu_torch.types.proposal",
                  "tendermint_tpu_torch.types.validator_set",
+                 "tendermint_tpu_torch.types.vote_set",
+                 "tendermint_tpu_torch.tools.commits",
+                 "tendermint_tpu_torch.tools.g2_lanes",
                  "tendermint_tpu_torch.abci.client",
                  "tendermint_tpu_torch.abci.example.kvstore",
                  "tendermint_tpu_torch.proxy",
