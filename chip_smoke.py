@@ -16,6 +16,17 @@ Phases, each reported on its own line:
    index. Launch counters are zeroed just before and read just after.
 4. times: each kernel (CUDA events) at the main path's shapes beside its
    plain version and its bound; verify_commit signatures per second.
+4b. sharded: the sharded verify-and-tally kernel (``ed25519_verify_tally``,
+   K8) against its plain version on the big commit's 10,240 signatures
+   (every 97th invalid, powers 2^40) as one shard and as four shards of the
+   card, the device-profile stub kernels (``stub_verify_dense``, P1/P2, and
+   ``stub_verify_sparse``, P3, at 0 and 20,000 LCG rounds) and P4
+   (``probe_sum_u8`` at 4 MB) against theirs; then the paths that run them:
+   ``batch_verify_sharded`` over 1 and 4 shards with its exact tally,
+   ``entry.dryrun_multichip(1)``, the MultiDeviceStream over two lanes of
+   the card (20,480 signatures, verdicts equal to the single-device
+   stream's), ``device_profile cost-model`` (P4) and a synthetic scale cell
+   (P1-P3); then their times.
 5. apply: block execution on a 150-validator chain with the Merkle kvstore
    app over an app state of 2^20 keys (BlockExecutor.apply_block ->
    validate_block -> verify_commit on the dense kernel; BeginBlock,
@@ -137,6 +148,14 @@ TPU_KERNELS = {
     "bls_g2_add_round": "tendermint_tpu/crypto/bls12381/vec.py:285 "
                         "(_g2_add_round over g2_add_vec :227 and mont_mul "
                         ":141, K10)",
+    "ed25519_verify_tally": (
+        "tendermint_tpu/crypto/ed25519_jax/sharded.py:78 (full_step, built "
+        "by _sharded_step :66, jit :94, K8)"),
+    "stub_verify_dense": (
+        "tools/device_profile.py:291-297 (_kern / stub_kernel, P1) + "
+        ":299-303 (stub_stream, P2)"),
+    "stub_verify_sparse": "tools/device_profile.py:305-317 (stub_sparse, P3)",
+    "probe_sum_u8 (P4)": "tools/device_profile.py:357 (touch, P4)",
 }
 SOURCES = {
     "ed25519_verify_dense":
@@ -147,7 +166,17 @@ SOURCES = {
     "sha256_many": "tendermint_tpu_torch/crypto/merkle_cuda/csrc/sha256.cu",
     "bls_g2_add_round":
         "tendermint_tpu_torch/crypto/bls12381_cuda/csrc/g2_add.cu",
+    "ed25519_verify_tally":
+        "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/tally.cu",
+    "stub_verify_dense": "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/stub.cu",
+    "stub_verify_sparse":
+        "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/stub.cu",
+    "probe_sum_u8 (P4)": "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/probe.cu",
 }
+# the kernels phase main drives (the tally and the stubs have their own
+# paths, driven in phase sharded)
+MAIN_KERNELS = ("ed25519_verify_dense", "ed25519_verify_sparse",
+                "probe_sum_u8")
 
 
 def say(*parts) -> None:
@@ -414,8 +443,8 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
         raise AssertionError(f"rejected at the wrong index: {err}")
     say(f"  rejected: {err}")
     say(f"phase main: launches {main_launches}")
-    for k, n in main_launches.items():
-        if n == 0:
+    for k in MAIN_KERNELS:
+        if main_launches[k] == 0:
             raise AssertionError(f"the main path never launched {k}")
 
     # -- 4. times --------------------------------------------------------------
@@ -503,7 +532,325 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
         k["route"] = "cuda"
         k["source"] = SOURCES[k["name"]]
         k["replaces"] = TPU_KERNELS[k["name"]]
-    return {"kernels": kernels, "verify_commit_sigs_per_s": rates}
+    return {"kernels": kernels, "verify_commit_sigs_per_s": rates,
+            "big_items": (pk_big, sb_big, sigs_big)}
+
+
+# --- 4b. sharded verify-and-tally (K8), the multi-device stream, the
+# device-profile stub kernels (P1-P3) and P4 -------------------------------
+
+SHARDS = 4
+TALLY_INVALID_EVERY = 97
+TALLY_POWER = 1 << 40
+MD_LANES = 2
+STUB_SIGS = 2 * N_BIG
+STUB_WORK = 20_000
+P4_BYTES = 4 << 20
+
+
+def _ops_bound(ops, nbytes, int32_peak):
+    ops_s, bytes_s = ops / int32_peak, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def _streams_time_ms(fns, dev, reps=5):
+    """Mean ms of launching each of ``fns`` on a stream of its own, all
+    after and before the current stream (CUDA events)."""
+    import torch
+
+    streams = [torch.cuda.Stream(device=dev) for _ in fns]
+
+    def run_all():
+        cur = torch.cuda.current_stream(dev)
+        for st, fn in zip(streams, fns):
+            st.wait_stream(cur)
+            with torch.cuda.stream(st):
+                fn()
+        for st in streams:
+            cur.wait_stream(st)
+    return _time_ms(run_all, dev, reps)
+
+
+def _same(what, k, p):
+    """The largest difference of two result tensors; raises unless they
+    are equal."""
+    import torch
+
+    err = int((k.to(torch.int64) - p.to(torch.int64)).abs().max().item()) \
+        if k.numel() else 0
+    if not torch.equal(k, p):
+        raise AssertionError(f"{what}: kernel != plain (max diff {err})")
+    return err
+
+
+def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
+    """Phase sharded: K8, P1-P3 and P4 against their plain versions on the
+    card; the paths that run them, each with the launch counts zeroed just
+    before and read just after (batch_verify_sharded over one shard and
+    over SHARDS shards of the card plus entry.dryrun_multichip(1) for K8;
+    MultiDeviceStream over MD_LANES lanes of the card against the
+    single-device stream; device_profile cost-model for P4; a synthetic
+    scale cell for P1-P3); then their times. Returns the kernels' JSON
+    records and the phase's summary. Raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import entry
+    from tendermint_tpu_torch.crypto import phases
+    from tendermint_tpu_torch.crypto.ed25519_cuda import curve
+    from tendermint_tpu_torch.crypto.ed25519_cuda import multidevice as MD
+    from tendermint_tpu_torch.crypto.ed25519_cuda import sharded as S
+    from tendermint_tpu_torch.crypto.ed25519_cuda import stub as ST
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.tools import device_profile as DP
+
+    t_phase = time.perf_counter()
+    table = curve.base_table(dev)
+    products = FIELD_MULS_PER_VERIFY * PRODUCTS_PER_FIELD_MUL
+    # the big commit's signatures, every 97th with its s half zeroed (host
+    # valid, rejected by the kernel), each of power 2^40
+    pks, msgs, sigs0 = big_items
+    n = len(pks)
+    sigs = [sg[:32] + bytes(32) if i % TALLY_INVALID_EVERY == 0 else sg
+            for i, sg in enumerate(sigs0)]
+    expect = np.arange(n) % TALLY_INVALID_EVERY != 0
+    powers = [TALLY_POWER] * n
+
+    # -- checks: each kernel against its plain version, every item ----------
+    bw, nb, sw, ok = V.prepare_batch(pks, msgs, sigs)
+    limbs = S._power_limbs(np.full(n, TALLY_POWER, np.int64) * ok)
+    full = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+            (V._as_i32(bw), nb, V._as_i32(sw), limbs)]
+    tally_err = 0
+    for d in (1, SHARDS):
+        for a, b in S._shard_bounds(n, d):
+            args = [x[a:b] for x in full]
+            kv, ks = V.verify_tally(*args, table)
+            pv, ps = V.verify_tally_plain(*args, table)
+            tally_err = max(tally_err, _same("ed25519_verify_tally verdicts",
+                                             kv, pv),
+                            _same("ed25519_verify_tally limb sums", ks, ps))
+            if (kv.cpu().numpy() & ok[a:b]).tolist() != expect[a:b].tolist():
+                raise AssertionError("ed25519_verify_tally: wrong verdicts "
+                                     f"in rows {a}..{b}")
+    say(f"phase kernels: ed25519_verify_tally == plain on every item and "
+        f"limb sum, {n} signatures (every {TALLY_INVALID_EVERY}th invalid, "
+        f"powers 2^40) as 1 shard and as {SHARDS} shards")
+
+    spks, smsgs, ssigs = DP.build_workload(STUB_SIGS)
+    (dbw, dnb, dsw), _ = V._pack_stream_dense(spks, smsgs, ssigs, CHUNK)
+    dense = V._dense_args(dbw, dnb, dsw, dev)
+    slimbs = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, 256, (dbw.shape[0], 8), dtype=np.int32)).to(dev)
+    stub_err = 0
+    for work in (0, STUB_WORK):
+        kv, kb, ks = ST.stub_verify_dense(*dense, work, limbs=slimbs)
+        pv, pb, ps = ST.stub_verify_dense_plain(*dense, work, limbs=slimbs)
+        stub_err = max(stub_err, _same("stub_verify_dense verdicts", kv, pv),
+                       _same("stub_verify_dense burned words", kb, pb),
+                       _same("stub_verify_dense limb sums", ks, ps))
+    seg = STUB_SIGS // 2   # one segment of the synthetic multidev row
+    sp = V.pack_sparse(spks[:seg], smsgs[:seg], ssigs[:seg], CHUNK)
+    _, scols, sdv, smlen, sr, sa, ss = [torch.from_numpy(np.array(x)).to(dev)
+                                        for x in sp[:7]]
+    sparse_err = 0
+    for work in (0, STUB_WORK):
+        kv, kb = ST.stub_verify_sparse(sdv, smlen, sr, sa, ss, work)
+        pv, pb = ST.stub_verify_sparse_plain(sdv, smlen, sr, sa, ss, work)
+        sparse_err = max(sparse_err,
+                         _same("stub_verify_sparse verdicts", kv, pv),
+                         _same("stub_verify_sparse burned words", kb, pb))
+    say(f"phase kernels: stub_verify_dense == plain on {dbw.shape[0]} items "
+        f"x NBLK {dbw.shape[1]} (verdicts, burned words, limb sums) and "
+        f"stub_verify_sparse == plain on {seg} items x {sdv.shape[1]} diff "
+        f"columns, each at device_work 0 and {STUB_WORK}")
+
+    x4 = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, 256, P4_BYTES, dtype=np.uint8)).to(dev)
+    k4, p4 = V.probe_sum(x4).item(), V.probe_sum_plain(x4).item()
+    if not k4 == p4 == int(x4.to(torch.int64).sum().item()):
+        raise AssertionError(f"probe_sum_u8 at 4 MB: {k4} != plain {p4}")
+    say(f"phase kernels: probe_sum_u8 (P4) == plain at {P4_BYTES} bytes "
+        f"({k4})")
+
+    # -- the paths, counts zeroed just before and read just after ------------
+    V.reset_launches()
+    t = time.perf_counter()
+    verdicts, totals = {}, {}
+    for d in (1, SHARDS):
+        verdicts[d], totals[d] = S.batch_verify_sharded(
+            pks, msgs, sigs, powers=powers, mesh=[dev] * d)
+        if verdicts[d].tolist() != expect.tolist():
+            raise AssertionError(f"batch_verify_sharded over {d} shards: "
+                                 "wrong verdicts")
+        if totals[d] != int(expect.sum()) << 40:
+            raise AssertionError(f"batch_verify_sharded over {d} shards: "
+                                 f"tally {totals[d]}")
+    sharded_s = time.perf_counter() - t
+    entry.dryrun_multichip(1, signer=signer)
+    tally_launches = V.launches["ed25519_verify_tally"]
+    if tally_launches != 1 + SHARDS + 2:
+        raise AssertionError(f"{tally_launches} K8 launches, expected "
+                             f"{1 + SHARDS + 2}")
+    say(f"phase sharded: {n} signatures over 1 and {SHARDS} shards of the "
+        f"card: verdicts == expected, exact tally {totals[1]} (~2^"
+        f"{totals[1].bit_length() - 1}) both ways, in {sharded_s:.2f} s; "
+        f"entry.dryrun_multichip(1) ok; K8 launches {tally_launches}")
+
+    md_pks, md_msgs = pks * 2, msgs * 2
+    md_sigs = sigs0 + [_flip(sg, 45, 4) if i % 13 == 0 else sg
+                       for i, sg in enumerate(sigs0)]
+    md_expect = [True] * n + [i % 13 != 0 for i in range(n)]
+    with MD.disabled():
+        single = V.batch_verify_stream(md_pks, md_msgs, md_sigs, chunk=CHUNK)
+    pool = MD.MultiDeviceStream(devices=[dev] * MD_LANES, min_sigs=0)
+    try:
+        phases.reset()
+        V.reset_launches()
+        got = pool.verify(md_pks, md_msgs, md_sigs, CHUNK)
+        md_launches = dict(V.launches)
+        lanes = sorted({r["device"] for r in phases.recent_segments()})
+        if got.tolist() != single.tolist() or got.tolist() != md_expect:
+            raise AssertionError("MultiDeviceStream verdicts != the "
+                                 "single-device stream's")
+        if lanes != [l.label for l in pool.lanes]:
+            raise AssertionError(f"segments ran on lanes {lanes}")
+        if pool.stats["lane_errors"] or not md_launches[
+                "ed25519_verify_sparse"]:
+            raise AssertionError(f"MultiDeviceStream: {pool.stats}, "
+                                 f"launches {md_launches}")
+        walls = {"single": [], "multidev": []}
+        for _ in range(3):
+            for key, fn in (("single", lambda: V._verify_segmented(
+                    md_pks, md_msgs, md_sigs, CHUNK)),
+                    ("multidev", lambda: pool.verify(
+                        md_pks, md_msgs, md_sigs, CHUNK))):
+                t = time.perf_counter()
+                fn()
+                walls[key].append((time.perf_counter() - t) * 1e3)
+    finally:
+        pool.shutdown()
+    md_ms = {k: statistics.median(v) for k, v in walls.items()}
+    say(f"phase sharded: MultiDeviceStream over {MD_LANES} lanes of the card "
+        f"({', '.join(lanes)}), {2 * n} signatures: verdicts == the "
+        f"single-device stream's; launches {md_launches}; wall "
+        f"{md_ms['multidev']:.2f} ms against {md_ms['single']:.2f} ms "
+        f"single-device (median of 3, alternated) ({smi})")
+
+    V.reset_launches()
+    cost = DP.make_doc("cost-model", {"payload_mb": 4.0, "runs": 4},
+                       DP.run_cost_model(dev, 4.0, 4), dev.type)
+    p4_launches = V.launches["probe_sum_u8"]
+    errs = DP.validate_profile(cost)
+    if errs or not p4_launches:
+        raise AssertionError(f"cost-model: {errs}, P4 launches "
+                             f"{p4_launches}")
+    for line in DP.to_markdown(cost).splitlines():
+        say(f"  {line}")
+    say(f"phase sharded: device_profile cost-model (4 MB, 4 runs) ok; "
+        f"probe_sum_u8 launches {p4_launches}")
+
+    V.reset_launches()
+    ST.reset_launches()
+    cell = DP.run_scale_cell(dev.type, 1, [CHUNK], STUB_SIGS, "synthetic",
+                             runs=1, device_work=STUB_WORK)
+    stub_launches = dict(ST.launches)
+    verify_launched = {k: n_ for k, n_ in V.launches.items()
+                       if k != "probe_sum_u8" and n_}
+    if not all(stub_launches.values()) or verify_launched:
+        raise AssertionError(f"synthetic scale cell: stub launches "
+                             f"{stub_launches}, verify launches "
+                             f"{verify_launched}")
+    say(f"phase sharded: device_profile scale cell (synthetic, device_work "
+        f"{STUB_WORK}, {STUB_SIGS} signatures): "
+        + "; ".join(f"{r['mode']} {r['sigs_per_sec']:.0f} sigs/s"
+                    for r in cell["rows"])
+        + f"; stub launches {stub_launches}")
+
+    # -- times ---------------------------------------------------------------
+    k8_ms = _time_ms(lambda: V.verify_tally(*full, table), dev)
+    k8_4_ms = _streams_time_ms(
+        [lambda a=a, b=b: V.verify_tally(*[x[a:b] for x in full], table)
+         for a, b in S._shard_bounds(n, SHARDS)], dev)
+    k8_plain = _time_ms(lambda: V.verify_tally_plain(*full, table), dev, 1, 0)
+    k8_bytes = sum(x.numel() * x.element_size() for x in full) \
+        + table.numel() * 4 + n + 64
+    k8_bound, k8_by = _ops_bound(n * products, k8_bytes, int32_peak)
+    say(f"times: ed25519_verify_tally {n} x NBLK {bw.shape[1]}: one launch "
+        f"{k8_ms:.4f} ms; {SHARDS} shards on {SHARDS} streams {k8_4_ms:.4f} "
+        f"ms (plain {k8_plain:.1f} ms, bound {k8_bound:.4f} ms by {k8_by}) "
+        f"({smi})")
+
+    nd, words = dbw.shape[0], dbw.shape[1] * 32
+    d_bytes = nd * (words * 4 + 4 + 32) + nd * 5
+    stub_d = {}
+    for work in (0, STUB_WORK):
+        ms = _time_ms(lambda: ST.stub_verify_dense(*dense, work), dev, 20)
+        plain = _time_ms(lambda: ST.stub_verify_dense_plain(*dense, work),
+                         dev, 3)
+        # a word read is one add; a round is one multiply-add
+        bound, by = _ops_bound(nd * (words + 9 + work), d_bytes, int32_peak)
+        stub_d[work] = (ms, plain, bound, by)
+    c = sdv.shape[1]
+    s_bytes = seg * (c + 4 + 96) + seg * 5
+    stub_s = {}
+    for work in (0, STUB_WORK):
+        ms = _time_ms(lambda: ST.stub_verify_sparse(sdv, smlen, sr, sa, ss,
+                                                    work), dev, 20)
+        plain = _time_ms(lambda: ST.stub_verify_sparse_plain(
+            sdv, smlen, sr, sa, ss, work), dev, 3)
+        bound, by = _ops_bound(seg * (c + 97 + work), s_bytes, int32_peak)
+        stub_s[work] = (ms, plain, bound, by)
+    for name, shape, rows in (
+            ("stub_verify_dense", f"{nd} x NBLK {dbw.shape[1]}", stub_d),
+            ("stub_verify_sparse", f"{seg} x {c} columns", stub_s)):
+        say(f"times: {name} {shape}: " + "; ".join(
+            f"device_work {w}: {ms:.4f} ms (plain {plain:.3f} ms, bound "
+            f"{bound:.6f} ms by {by})" for w, (ms, plain, bound, by)
+            in rows.items()) + f" ({smi})")
+
+    p4_ms = _time_ms(lambda: V.probe_sum(x4), dev, 20)
+    p4_plain = _time_ms(lambda: V.probe_sum_plain(x4), dev, 20)
+    p4_lib = _time_ms(lambda: torch.sum(x4, dtype=torch.int32), dev, 20)
+    p4_bound, p4_by = _ops_bound(P4_BYTES, P4_BYTES + 4, int32_peak)
+    say(f"times: probe_sum_u8 (P4) {P4_BYTES} bytes: {p4_ms:.4f} ms (plain "
+        f"{p4_plain:.4f} ms, torch.sum {p4_lib:.4f} ms, bound "
+        f"{p4_bound:.6f} ms by {p4_by}) ({smi})")
+
+    def record(name, shape, launches, err, ms, plain, bound, by, lib=None,
+               **extra):
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": TPU_KERNELS[name], "shape": shape,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib, **extra}
+
+    kernels = [
+        record("ed25519_verify_tally", f"{n} items x NBLK {bw.shape[1]}, "
+               "one launch", tally_launches, tally_err, k8_ms, k8_plain,
+               k8_bound, k8_by, ms_4_shards_4_streams=k8_4_ms),
+        record("stub_verify_dense", f"{nd} items x NBLK {dbw.shape[1]}, "
+               f"device_work {STUB_WORK}",
+               stub_launches["stub_verify_dense"], stub_err,
+               *stub_d[STUB_WORK], ms_work_0=stub_d[0][0],
+               plain_ms_work_0=stub_d[0][1], bound_ms_work_0=stub_d[0][2],
+               bound_by_work_0=stub_d[0][3]),
+        record("stub_verify_sparse", f"{seg} items x {c} columns, "
+               f"device_work {STUB_WORK}",
+               stub_launches["stub_verify_sparse"], sparse_err,
+               *stub_s[STUB_WORK], ms_work_0=stub_s[0][0],
+               plain_ms_work_0=stub_s[0][1], bound_ms_work_0=stub_s[0][2],
+               bound_by_work_0=stub_s[0][3]),
+        record("probe_sum_u8 (P4)", f"{P4_BYTES} bytes", p4_launches,
+               abs(k4 - p4), p4_ms, p4_plain, p4_bound, p4_by, p4_lib),
+    ]
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase sharded: {phase_s:.1f} s in all")
+    return {"kernels": kernels, "summary": {
+        "tally": totals[1], "multidev_ms": md_ms,
+        "multidev_launches": md_launches, "cost_model": cost["results"],
+        "scale_cell": cell["rows"], "phase_s": phase_s}}
 
 
 # --- SHA-256 (K9) -------------------------------------------------------------
@@ -1316,6 +1663,8 @@ def main() -> int:
 
     with commits.Signer() as signer:
         result = run(dev, smi, int32_peak, signer)
+        sharded = run_sharded(dev, smi, int32_peak, signer,
+                              result.pop("big_items"))
         sha_err = sha256_check(dev)
         apply = run_apply(dev, smi, signer)
         t_bls = time.perf_counter()
@@ -1323,6 +1672,7 @@ def main() -> int:
         bls = run_bls(dev, smi, int32_peak, signer)
         bls_apply = run_bls_apply(dev, smi, signer)
         bls_s = time.perf_counter() - t_bls
+    result["kernels"] += sharded["kernels"]
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
     record = bls["kernel"]
@@ -1339,7 +1689,8 @@ def main() -> int:
                     "apply_block": apply["heights"],
                     "bls_verify": bls["rates"],
                     "bls_verify_breakdown": bls["breakdown"],
-                    "bls_apply_block": bls_apply["heights"], "card": smi}))
+                    "bls_apply_block": bls_apply["heights"],
+                    "sharded": sharded["summary"], "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,6 @@ from . import phases as _phases
 from ..device import KernelUnavailable
 from ..libs.faults import faults
 from ..libs.trace import tracer
-from .breaker import classify_device_error, device_breaker
 
 logger = logging.getLogger("tmtpu.batch")
 
@@ -115,9 +114,8 @@ stats = {
     "device_batches": 0, "device_sigs": 0,
     "precomputed_batches": 0, "precomputed_sigs": 0,
     "largest_batch": 0,
-    # robustness plane: device attempts that raised (fell back to host) and
-    # batches the open circuit breaker kept off the device entirely
-    "device_errors": 0, "breaker_rejections": 0,
+    # device attempts that raised to the caller
+    "device_errors": 0,
 }
 
 # CryptoMetrics hook, wired by the node (same idiom as p2p's
@@ -210,16 +208,8 @@ class BatchVerifier:
             from .ed25519_cuda.verify import kernel_device
 
             # a card or kernel that cannot be used at all reaches the
-            # caller (KernelUnavailable) before the breaker admits anything:
-            # only faults of a running kernel re-verify on host below
+            # caller (KernelUnavailable) before anything is counted
             kernel_device()
-        if backend == "cuda" and not device_breaker.allow():
-            # breaker OPEN: zero device attempts until the cooldown admits a
-            # half-open probe; the host path keeps verifying meanwhile
-            backend = "host"
-            stats["breaker_rejections"] += 1
-            if metrics is not None:
-                metrics.device_fallbacks_total.labels("breaker_open").inc()
 
         non_ed_idx = {i: pk for i, pk in non_ed}
 
@@ -235,12 +225,11 @@ class BatchVerifier:
         # tracer.span is a shared no-op when disabled (one attribute check
         # inside span() plus the kwargs dict — noise next to any verify)
         with tracer.span("batch_verify", n=n, route=route,
-                         plane=self.plane) as sp:
+                         plane=self.plane):
             if backend == "cuda":
                 try:
                     # chaos seam: an armed `device.batch_verify` site raises
-                    # here, exercising the same fallback a real device error
-                    # takes
+                    # here, as a fault of a running kernel would
                     faults.inject("device.batch_verify")
                     from .ed25519_cuda import batch_verify_stream
 
@@ -249,9 +238,10 @@ class BatchVerifier:
                     if ed_pos:
                         # batch_verify_stream == batch_verify below one
                         # chunk; above, it launches whole chunks per
-                        # segment. The columnar hint only
-                        # survives when it still aligns 1:1 with the rows
-                        # the kernel sees (no non-ed25519 holes)
+                        # segment (or shards them across the multi-device
+                        # pool). The columnar hint only survives when it
+                        # still aligns 1:1 with the rows the kernel sees
+                        # (no non-ed25519 holes)
                         cols = (columns if columns is not None
                                 and len(ed_pos) == n
                                 and len(columns) == n else None)
@@ -267,39 +257,20 @@ class BatchVerifier:
                         out[i] = pub.verify_signature(msgs[i], sigs[i])
                 except KernelUnavailable:
                     raise
-                except Exception as e:
-                    # a fault of a running kernel never surfaces to the
-                    # caller: the batch re-verifies on host (byte-identical verdicts)
-                    # and the breaker remembers, so persistent failure stops
-                    # paying the device attempt at all
-                    reason = classify_device_error(e)
-                    logger.warning(
-                        "device batch verify failed (%s, n=%d, plane=%s): "
-                        "%s — re-verifying on host", reason, n, self.plane, e)
-                    device_breaker.record_failure()
+                except Exception:
+                    # a fault of a running kernel (at launch, or surfacing
+                    # at the fetch), the armed fault site, or every lane of
+                    # the multi-device pool failing: counted, and raised to
+                    # the caller; nothing is re-verified on the host
                     stats["device_errors"] += 1
-                    if metrics is not None:
-                        metrics.device_fallbacks_total.labels(reason).inc()
-                    route = "scalar"
-                    # keep the trace honest: the span was opened with
-                    # route="device" but the work below is the host path
-                    sp.set(route="scalar", device_error=reason)
-                    t0 = time.perf_counter()  # charge only the host verify
-                    out = _host_verify()
-                else:
-                    if ed_pos:
-                        # only real device evidence closes/holds the
-                        # breaker: an all-non-ed25519 batch never touched
-                        # the device, and letting it report success would
-                        # falsely close a half-open probe
-                        device_breaker.record_success()
+                    raise
             else:
                 out = _host_verify()
         stats["device_batches" if route == "device" else "host_batches"] += 1
         stats["device_sigs" if route == "device" else "host_sigs"] += n
         if route != "device":
-            # scalar-routed (or device-fallback) batches record zero device
-            # phases but still count on the device plane's ledger
+            # scalar-routed batches record zero device phases but still
+            # count on the device plane's ledger
             _phases.count_host(self.plane, n)
         if metrics is not None:
             elapsed = time.perf_counter() - t0

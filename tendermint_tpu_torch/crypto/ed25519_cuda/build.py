@@ -10,13 +10,21 @@ from ..cuda_build import CudaPackage
 
 PACKAGE = CudaPackage(
     Path(__file__).resolve().parent / "csrc",
-    sources={"verify": "verify.cu", "probe": "probe.cu"},
+    sources={"verify": "verify.cu", "probe": "probe.cu",
+             "tally": "tally.cu", "stub": "stub.cu"},
     signatures={
         "tm_ed25519_verify_dense": (
             "verify", [c_void_p] * 5 + [c_int, c_int, c_void_p]),
         "tm_ed25519_verify_sparse": (
             "verify", [c_void_p, c_int, c_void_p, c_int] + [c_void_p] * 5
             + [c_int, c_void_p, c_void_p, c_int, c_void_p]),
+        "tm_ed25519_verify_tally": (
+            "tally", [c_void_p] * 7 + [c_int, c_int, c_void_p]),
         "tm_probe_sum_u8": ("probe", [c_void_p, c_longlong, c_void_p,
                                       c_void_p]),
+        "tm_stub_verify_dense": (
+            "stub", [c_void_p] * 7 + [c_int, c_int, c_int, c_void_p]),
+        "tm_stub_verify_sparse": (
+            "stub", [c_void_p, c_int] + [c_void_p] * 6
+            + [c_int, c_int, c_void_p]),
     })

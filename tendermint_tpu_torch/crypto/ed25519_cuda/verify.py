@@ -12,7 +12,9 @@ of work is the same:
 * device: one thread per signature runs SHA-512, the reduction mod L,
   decompression of A, [s]B + [h](-A), the encoding and the compare with R
   (``csrc/verify.cu``: ``ed25519_verify_dense`` for K5/K6,
-  ``ed25519_verify_sparse`` for K7).
+  ``ed25519_verify_sparse`` for K7; ``csrc/tally.cu``:
+  ``ed25519_verify_tally`` for K8, the dense verify plus the masked sum of
+  each accepted signature's 8-bit power limbs, for sharded.py).
 
 The verdict is ``kernel & ok``, where ``ok`` is the host mask, exactly as
 in the JAX package. Arrays are item-major here (one row per signature):
@@ -49,7 +51,7 @@ _L_WORDS = np.frombuffer(L.to_bytes(32, "little"), dtype="<u8").copy()
 
 #: launches of each kernel by its wrapper (plain-version calls excluded)
 launches = {"ed25519_verify_dense": 0, "ed25519_verify_sparse": 0,
-            "probe_sum_u8": 0}
+            "ed25519_verify_tally": 0, "probe_sum_u8": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -97,6 +99,19 @@ def _stream_ptr(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _on_device(device: Optional[torch.device], stream=None):
+    """A context in which ``device`` (a card) is the calling thread's
+    current device and ``stream`` its current stream. The CUDA runtime
+    launches on the current device, so a launch on another card's stream,
+    and an upload meant for it, must make that card current first."""
+    ctx = contextlib.ExitStack()
+    if device is not None and device.type == "cuda":
+        ctx.enter_context(torch.cuda.device(device))
+    if stream is not None:
+        ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
 def verify_dense(blocks: torch.Tensor, nblk: torch.Tensor,
                  s_words: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """K5/K6: blocks (n, NBLK, 32) int32 (big-endian u32 words of each
@@ -117,9 +132,10 @@ def verify_dense(blocks: torch.Tensor, nblk: torch.Tensor,
         return verify_dense_plain(blocks, nblk, s_words, table)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     lib = build.PACKAGE.library("verify")
-    rc = lib.tm_ed25519_verify_dense(
-        blocks.data_ptr(), nblk.data_ptr(), s_words.data_ptr(),
-        table.data_ptr(), out.data_ptr(), n, nb, _stream_ptr(dev))
+    with _on_device(dev):
+        rc = lib.tm_ed25519_verify_dense(
+            blocks.data_ptr(), nblk.data_ptr(), s_words.data_ptr(),
+            table.data_ptr(), out.data_ptr(), n, nb, _stream_ptr(dev))
     _launch_check(rc, "ed25519_verify_dense")
     _count("ed25519_verify_dense")
     return out.view(torch.bool)
@@ -153,14 +169,50 @@ def verify_sparse(templates: torch.Tensor, cols: torch.Tensor,
                                    chunk, table)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     lib = build.PACKAGE.library("verify")
-    rc = lib.tm_ed25519_verify_sparse(
-        templates.data_ptr(), mlen_max, cols.data_ptr(), c,
-        diff_vals.data_ptr(), mlen.data_ptr(), r.data_ptr(), a.data_ptr(),
-        s.data_ptr(), chunk, table.data_ptr(), out.data_ptr(), n,
-        _stream_ptr(dev))
+    with _on_device(dev):
+        rc = lib.tm_ed25519_verify_sparse(
+            templates.data_ptr(), mlen_max, cols.data_ptr(), c,
+            diff_vals.data_ptr(), mlen.data_ptr(), r.data_ptr(),
+            a.data_ptr(), s.data_ptr(), chunk, table.data_ptr(),
+            out.data_ptr(), n, _stream_ptr(dev))
     _launch_check(rc, "ed25519_verify_sparse")
     _count("ed25519_verify_sparse")
     return out.view(torch.bool)
+
+
+def verify_tally(blocks: torch.Tensor, nblk: torch.Tensor,
+                 s_words: torch.Tensor, limbs: torch.Tensor,
+                 table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: :func:`verify_dense`'s inputs plus limbs (n, 8) int32, the 8-bit
+    limbs of each item's power (sharded._power_limbs) -> ((n,) bool kernel
+    verdicts, (8,) int64 per-limb sums over the items whose verdict is
+    true)."""
+    n = blocks.shape[0] if blocks.dim() == 3 else -1
+    nb = blocks.shape[1] if blocks.dim() == 3 else -1
+    _check(blocks, "blocks", torch.int32, (n, nb, 32))
+    _check(nblk, "nblk", torch.int32, (n,))
+    _check(s_words, "s_words", torch.int32, (n, 8))
+    _check(limbs, "limbs", torch.int32, (n, 8))
+    _check(table, "table", torch.int32, (64, 16, 3, 10))
+    if nb < 1:
+        raise ValueError("blocks: each row needs at least one 128-byte "
+                         "block (R and A are read from the first)")
+    dev = _same_device([blocks, nblk, s_words, limbs, table],
+                       "ed25519_verify_tally")
+    if dev.type == "cpu":
+        return verify_tally_plain(blocks, nblk, s_words, limbs, table)
+    lib = build.PACKAGE.library("tally")
+    with _on_device(dev):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        # zeroed on the stream the kernel's atomics then run on
+        sums = torch.zeros(8, dtype=torch.int64, device=dev)
+        rc = lib.tm_ed25519_verify_tally(
+            blocks.data_ptr(), nblk.data_ptr(), s_words.data_ptr(),
+            limbs.data_ptr(), table.data_ptr(), out.data_ptr(),
+            sums.data_ptr(), n, nb, _stream_ptr(dev))
+    _launch_check(rc, "ed25519_verify_tally")
+    _count("ed25519_verify_tally")
+    return out.view(torch.bool), sums
 
 
 def probe_sum(x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +224,9 @@ def probe_sum(x: torch.Tensor) -> torch.Tensor:
         return probe_sum_plain(x)
     out = torch.empty(1, dtype=torch.int32, device=dev)
     lib = build.PACKAGE.library("probe")
-    rc = lib.tm_probe_sum_u8(x.data_ptr(), x.numel(), out.data_ptr(),
-                             _stream_ptr(dev))
+    with _on_device(dev):
+        rc = lib.tm_probe_sum_u8(x.data_ptr(), x.numel(), out.data_ptr(),
+                                 _stream_ptr(dev))
     _launch_check(rc, "probe_sum_u8")
     _count("probe_sum_u8")
     return out
@@ -186,6 +239,16 @@ M32 = 0xFFFFFFFF
 
 def probe_sum_plain(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).sum(dtype=torch.int32).reshape(1)
+
+
+def verify_tally_plain(blocks: torch.Tensor, nblk: torch.Tensor,
+                       s_words: torch.Tensor, limbs: torch.Tensor,
+                       table: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The plain version of :func:`verify_tally`, on any device."""
+    verdict = verify_dense_plain(blocks, nblk, s_words, table)
+    masked = torch.where(verdict.unsqueeze(1), limbs.to(torch.int64), 0)
+    return verdict, masked.sum(0, dtype=torch.int64)
 
 
 def _be_words_to_bytes(w: torch.Tensor) -> torch.Tensor:
@@ -603,21 +666,23 @@ def _dense_args(blocks_w, nblk, s_words, dev):
 
 
 def batch_verify(
-    pks: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes]
+    pks: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes],
+    device: Optional[torch.device] = None,
 ) -> np.ndarray:
-    """(N,) bool — batched strict Ed25519 verification on the default device."""
+    """(N,) bool — batched strict Ed25519 verification on ``device`` (the
+    default device unless given)."""
     n = len(pks)
     if n == 0:
         return np.zeros(0, dtype=bool)
+    dev = default_device() if device is None else device
     groups = _group_by_bucket(msgs)
     if len(groups) > 1:
         out = np.zeros(n, dtype=bool)
         for idxs in groups.values():
             out[idxs] = batch_verify([pks[i] for i in idxs],
                                      [msgs[i] for i in idxs],
-                                     [sigs[i] for i in idxs])
+                                     [sigs[i] for i in idxs], device=dev)
         return out
-    dev = default_device()
     rec = phases.Segment(sigs=n, chunk=n, device=device_label(dev)).begin()
     blocks_w, nblk, s_words, ok = prepare_batch(pks, msgs, sigs)
     args = _dense_args(blocks_w, nblk, s_words, dev)
@@ -644,16 +709,17 @@ def _pack_stream_dense(pks, msgs, sigs, chunk: int):
     return (blocks_w, nblk, s_words), ok
 
 
-def _dispatch_stream(pks, msgs, sigs, chunk: int, columns=None):
-    """Pack one whole-chunk segment and launch it on the current stream
-    (sparse path if the messages are template-compressible, dense
-    otherwise). Returns (_Fetch, ok_mask) WITHOUT waiting — the caller
-    decides when to block, which is what lets segment i+1's packing and
-    upload overlap segment i's kernel.
+def _dispatch_stream(pks, msgs, sigs, chunk: int, columns=None,
+                     device: Optional[torch.device] = None):
+    """Pack one whole-chunk segment and launch it on the current stream of
+    ``device`` (the default device unless given; the sparse path if the
+    messages are template-compressible, dense otherwise). Returns (_Fetch,
+    ok_mask) WITHOUT waiting — the caller decides when to block, which is
+    what lets segment i+1's packing and upload overlap segment i's kernel.
 
     ``columns`` is the caller's columnar sign-bytes structure (skips the
     sparse path's join + diff scan)."""
-    dev = default_device()
+    dev = default_device() if device is None else device
     table = curve.base_table(dev)
     sparse = prepare_sparse_stream(pks, msgs, sigs, chunk, columns=columns,
                                    device=dev)
@@ -698,19 +764,21 @@ def _segment_sizes(k_total: int) -> list:
 
 
 def _run_dispatch(rec, pks, msgs, sigs, chunk: int, columns=None,
-                  stream=None):
+                  stream=None, device: Optional[torch.device] = None):
     """One segment's pack + launch with phase stamps, on whatever thread
-    runs it, on ``stream`` when one is given (each pipeline segment has its
-    own CUDA stream). The active-segment slot lets _dispatch_stream close
-    the pack phase from inside."""
+    runs it (the caller, a pipeline worker, or a multi-device lane's
+    worker), on ``device`` (the default device unless given) and on
+    ``stream`` when one is given (each pipeline segment and each lane has
+    its own CUDA stream). On a card the thread makes ``device`` current
+    first, so uploads and launches use that card's pointers and stream.
+    The active-segment slot lets _dispatch_stream close the pack phase
+    from inside."""
     rec.begin()
     prev = phases.set_active(rec)
     try:
-        ctx = (torch.cuda.stream(stream) if stream is not None
-               else contextlib.nullcontext())
-        with ctx:
+        with _on_device(device, stream):
             fetch, ok = _dispatch_stream(pks, msgs, sigs, chunk,
-                                         columns=columns)
+                                         columns=columns, device=device)
     finally:
         phases.clear_active(prev)
     rec.dispatched()
@@ -791,8 +859,9 @@ def batch_verify_stream(
 ) -> np.ndarray:
     """(N,) bool — verify a large batch as whole chunks: one launch per
     SEG_CHUNKS-chunk segment, pipelined so segment i+1's packing and upload
-    overlap segment i's kernel. Single device: the JAX package's
-    multi-device pool is not ported yet. ``columns``
+    overlap segment i's kernel. Batches big enough to amortize per-device
+    dispatch shard round-robin across the multi-device pool
+    (multidevice.py) when there is one. ``columns``
     (crypto/signcols.SignColumns aligned 1:1 with the batch) lets
     VerifyCommit* callers hand the packer their sign-bytes structure."""
     t_entry = time.perf_counter()
@@ -814,6 +883,14 @@ def batch_verify_stream(
                                             [sigs[i] for i in idxs], chunk)
         return out
     if n >= SEG_MIN_SIGS:
+        from . import multidevice
+
+        # no try: a pool that fails to build raises; only fewer than two
+        # cards (or TMTPU_VERIFY_DEVICES <= 1) gives None
+        md = multidevice.pool()
+        if md is not None and md.engaged(n):
+            return md.verify(pks, msgs, sigs, chunk, columns=columns,
+                             t_entry=t_entry)
         return _verify_segmented(pks, msgs, sigs, chunk, t_entry=t_entry,
                                  columns=columns)
     rec = phases.Segment(sigs=n, chunk=chunk, device=device_label())

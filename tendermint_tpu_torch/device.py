@@ -20,8 +20,8 @@ _default: Optional[torch.device] = None
 class KernelUnavailable(RuntimeError):
     """The card or its kernels cannot be used at all: CUDA is absent while
     the default device is ``cuda``, or a kernel library does not build or
-    load. Entry points let it reach the caller; only a fault of a running
-    kernel is re-verified on the host."""
+    load. Entry points let it reach the caller, as they do every fault of
+    a running kernel: nothing is re-verified on the host."""
 
 
 def set_default_device(dev: Union[str, torch.device, None]) -> None:

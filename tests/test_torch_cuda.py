@@ -27,11 +27,15 @@ from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto.ed25519_cuda import curve as TC
 from tendermint_tpu_torch.crypto import merkle as tmerkle
+from tendermint_tpu_torch.crypto.ed25519_cuda import multidevice as TMD
+from tendermint_tpu_torch.crypto.ed25519_cuda import sharded as TSH
+from tendermint_tpu_torch.crypto.ed25519_cuda import stub as TST
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
 from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as TS
 from tendermint_tpu_torch.crypto import bls12381 as tbls
 from tendermint_tpu_torch.crypto.bls12381 import vec as tvec
 from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as TG
+from tendermint_tpu_torch.tools import device_profile as tprofile
 from tendermint_tpu_torch.tools import g2_lanes
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +50,7 @@ def _card():
     TV.reset_launches()
     TS.reset_launches()
     TG.reset_launches()
+    TST.reset_launches()
     yield dev
     device.set_default_device(None)
 
@@ -153,6 +158,71 @@ def test_batch_verifier_on_card(_card):
     assert verdicts.tolist() == [ed.verify(*c) for c in cases]
     assert tbatch.stats["device_errors"] == before
     assert TV.launches["ed25519_verify_dense"] >= 1
+
+
+def test_tally_kernel_matches_plain_and_spec(_card):
+    """K8: verdicts and limb sums equal to the plain version, verdicts to
+    the spec, and the sharded total over 1 and 4 shards of the card equal
+    to the exact Python sum (powers above 2^63 included)."""
+    cases = _cases(30, seed=8, msg_len=110)
+    pks, msgs, sigs = (list(x) for x in zip(*cases))
+    want = [ed.verify(*c) for c in cases]
+    powers = [(1 << 63) - 1 - i if i % 5 else -i for i in range(len(cases))]
+    bw, nblk, sw, ok = TV.prepare_batch(pks, msgs, sigs)
+    limbs = TSH._power_limbs(np.array(powers, dtype=np.int64) * ok)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(_card) for x in
+            (TV._as_i32(bw), nblk, TV._as_i32(sw), limbs)]
+    table = TC.base_table(_card)
+    v, sums = TV.verify_tally(*args, table)
+    torch.cuda.synchronize()
+    assert TV.launches["ed25519_verify_tally"] == 1
+    pv, psums = TV.verify_tally_plain(*args, table)
+    assert torch.equal(v, pv) and torch.equal(sums, psums)
+    assert (v.cpu().numpy() & ok).tolist() == want
+    exact = sum(p % (1 << 64) for p, w in zip(powers, want) if w)
+    for d in (1, 4):
+        verdict, total = TSH.batch_verify_sharded(pks, msgs, sigs, powers,
+                                                  mesh=[_card] * d)
+        assert verdict.tolist() == want and total == exact
+
+
+@pytest.mark.parametrize("work", [0, 1000])
+def test_stub_kernels_match_plain(_card, work):
+    """P1/P2 (with and without the tally) and P3: verdicts, burned words
+    and limb sums equal to the plain versions."""
+    pks, msgs, sigs = tprofile.build_workload(1000, seed=work)
+    bw, nblk, sw, _ = TV.prepare_batch(pks, msgs, sigs)
+    dense = TV._dense_args(bw, nblk, sw, _card)
+    limbs = torch.randint(0, 256, (1000, 8), dtype=torch.int32,
+                          device=_card)
+    for lb in (None, limbs):
+        got = TST.stub_verify_dense(*dense, work, limbs=lb)
+        want = TST.stub_verify_dense_plain(*dense, work, limbs=lb)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+    packed = TV.pack_sparse(pks, msgs, sigs, 256)
+    _, _, dv, ml, r, a, s = [torch.from_numpy(np.array(x)).to(_card)
+                             for x in packed[:7]]
+    got = TST.stub_verify_sparse(dv, ml, r, a, s, work)
+    want = TST.stub_verify_sparse_plain(dv, ml, r, a, s, work)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert TST.launches == {"stub_verify_dense": 2, "stub_verify_sparse": 1}
+
+
+def test_two_lanes_on_one_card(_card):
+    """The multi-device stream over two lanes of one card: verdicts equal
+    to the single-device stream's and the spec's, segments on both
+    lanes."""
+    cases = _cases(150, seed=6, msg_len=110) * 2
+    pks, msgs, sigs = (list(x) for x in zip(*cases))
+    want = TV._verify_segmented(pks, msgs, sigs, 128)
+    md = TMD.MultiDeviceStream(devices=[_card, _card], min_sigs=0)
+    try:
+        got = md.verify(pks, msgs, sigs, 128)
+    finally:
+        md.shutdown()
+    assert got.tolist() == want.tolist() == [ed.verify(*c) for c in cases]
+    assert md.stats["calls"] == 1 and not md.stats["lane_errors"]
 
 
 @pytest.mark.parametrize("length", [0, 51, 55, 56, 64, 65, 119, 300])

@@ -61,6 +61,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.crypto.cuda_build",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.verify",
                  "tendermint_tpu_torch.crypto.ed25519_cuda.build",
+                 "tendermint_tpu_torch.crypto.ed25519_cuda.multidevice",
+                 "tendermint_tpu_torch.crypto.ed25519_cuda.sharded",
+                 "tendermint_tpu_torch.crypto.ed25519_cuda.stub",
+                 "tendermint_tpu_torch.entry",
                  "tendermint_tpu_torch.crypto.merkle",
                  "tendermint_tpu_torch.crypto.merkle_fast",
                  "tendermint_tpu_torch.crypto.merkle_cuda.sha256",
@@ -76,6 +80,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.types.validator_set",
                  "tendermint_tpu_torch.types.vote_set",
                  "tendermint_tpu_torch.tools.commits",
+                 "tendermint_tpu_torch.tools.device_profile",
                  "tendermint_tpu_torch.tools.g2_lanes",
                  "tendermint_tpu_torch.abci.client",
                  "tendermint_tpu_torch.abci.example.kvstore",

@@ -28,6 +28,7 @@ from tendermint_tpu_torch.crypto import phases as tphases
 from tendermint_tpu_torch.crypto.breaker import device_breaker as tbreaker
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
 from tendermint_tpu_torch.device import KernelUnavailable
+from tendermint_tpu_torch.libs.faults import InjectedFault
 from tendermint_tpu_torch.libs.faults import faults as tfaults
 from tendermint_tpu_torch.types import validator_set as tvs_mod
 
@@ -225,30 +226,78 @@ def test_window_batched_variants_match(monkeypatch):
     assert tbatch.stats["device_batches"] == 2
 
 
-def test_device_fault_reverifies_on_host():
-    """An armed device.batch_verify site: the batch re-verifies on the host
-    with the same verdicts, and the error is counted."""
-    vs, privs = _make_set(8, seed=40)
-    commit, bid = _make_commit(vs, privs, seed=41, corrupt=(2,))
+def _items(seed, corrupt=(2,)):
+    vs, privs = _make_set(8, seed=seed)
+    commit, bid = _make_commit(vs, privs, seed=seed + 1, corrupt=corrupt)
     tvs, tcommit = _port(vs, commit)
     sb = tcommit.vote_sign_bytes_all(CHAIN_ID)
-    items = [(tvs.validators[i].pub_key, sb[i], tcommit.signatures[i].signature)
-             for i in range(8)]
+    return [(tvs.validators[i].pub_key, sb[i],
+             tcommit.signatures[i].signature) for i in range(8)]
+
+
+def _cuda_verify(items):
+    bv = tbatch.BatchVerifier(backend="cuda")
+    for pub, msg, sig in items:
+        bv.add(pub, msg, sig)
+    return bv.verify()
+
+
+def test_device_fault_reverifies_on_host():
+    """An armed device.batch_verify site reaches the caller: the batch is
+    not re-verified on the host, the error is counted, and the breaker is
+    not struck."""
+    items = _items(40)
     tfaults.configure("device.batch_verify*1")
-    bv = tbatch.BatchVerifier(backend="cuda")
-    for pub, msg, sig in items:
-        bv.add(pub, msg, sig)
-    all_ok, verdicts = bv.verify()
-    assert not all_ok and verdicts.tolist() == [i != 2 for i in range(8)]
+    with pytest.raises(InjectedFault):
+        _cuda_verify(items)
     assert tbatch.stats["device_errors"] == 1
-    assert tbatch.stats["host_sigs"] == 8 and tbatch.stats["device_sigs"] == 0
+    assert tbatch.stats["host_sigs"] == 0 and tbatch.stats["device_sigs"] == 0
+    assert tbreaker.state == "closed" and not tbreaker.stats
     # the site fired once: the next batch runs on the device path again
-    bv = tbatch.BatchVerifier(backend="cuda")
-    for pub, msg, sig in items:
-        bv.add(pub, msg, sig)
-    assert bv.verify()[1].tolist() == [i != 2 for i in range(8)]
+    assert _cuda_verify(items)[1].tolist() == [i != 2 for i in range(8)]
     assert tbatch.stats["device_sigs"] == 8
     assert isinstance(items[0][0], TPub)
+
+
+class _FaultAtFetch(torch.Tensor):
+    """A verdict tensor whose device fault surfaces when it is fetched, as
+    an asynchronous CUDA error does."""
+
+    def numpy(self, *args, **kwargs):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+
+@pytest.mark.parametrize("where", ["launch", "fetch"])
+def test_running_kernel_fault_reaches_the_caller(monkeypatch, where):
+    """A fault of the running verify kernel, at its launch or surfacing at
+    the fetch, reaches the caller: no host re-verify, no breaker strike."""
+    plain = TV.verify_dense
+
+    def broken(*args):
+        if where == "launch":
+            raise RuntimeError("ed25519_verify_dense: CUDA error 700 at "
+                               "launch")
+        return plain(*args).as_subclass(_FaultAtFetch)
+
+    monkeypatch.setattr(TV, "verify_dense", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda_verify(_items(42))
+    assert tbatch.stats["device_errors"] == 1
+    assert tbatch.stats["host_sigs"] == 0 and tbatch.stats["device_sigs"] == 0
+    assert tbreaker.state == "closed" and not tbreaker.stats
+
+
+def test_open_breaker_leaves_the_cuda_route_alone():
+    """An open device breaker does not send a cuda batch to the host, and
+    the route neither reads nor strikes it."""
+    while tbreaker.state != "open":
+        tbreaker.record_failure()
+    stats = dict(tbreaker.stats)
+    items = _items(44)
+    assert _cuda_verify(items)[1].tolist() == [i != 2 for i in range(8)]
+    assert tbatch.stats["device_sigs"] == 8 and tbatch.stats["host_sigs"] == 0
+    assert tbreaker.state == "open" and tbreaker.stats == stats
 
 
 @pytest.mark.parametrize("route", ["auto", "cuda"])

@@ -311,7 +311,8 @@ def test_wrappers_check_inputs_and_run_plain_on_cpu():
     assert TV.probe_sum(x).item() == int(x.numpy().astype(np.int64).sum())
     assert TV.probe_dispatch_seconds() > 0
     assert TV.launches == {"ed25519_verify_dense": 0,
-                           "ed25519_verify_sparse": 0, "probe_sum_u8": 0}
+                           "ed25519_verify_sparse": 0,
+                           "ed25519_verify_tally": 0, "probe_sum_u8": 0}
 
 
 def test_pk_cache_evicts_least_recently_used(monkeypatch):
