@@ -77,6 +77,8 @@ N_STREAM = 4096
 N_SPARSE_CHECK = 4000
 BAD_IDX = 7777
 CHUNK = 2048
+# 9 MB of 0xFF: a byte sum past 2^31 that the probe's int32 result wraps
+PROBE_WRAP_BYTES = 9 << 20
 
 # block execution: BASELINE.json config 2's 150 validators, the node's
 # kvstore-merkle app (snapshot every 4 heights), an app state of 2^20 keys
@@ -98,13 +100,19 @@ SHA_SPEC_LENGTHS = (0, 55, 56, 63, 64, 65, 119)
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 
-# limb products (32x32->64 multiply-adds) of one verify in the kernels:
-# 100 per field multiply or squaring, and per verify
+# field multiplies and squarings of one verify (the one-thread algorithm;
+# the four-lane core computes the same products, spread over its lanes):
 #   decompress 7 + pow_p58 262 + 6, [h](-A) 14*9 + 64*(4*8 + 9),
 #   [s]B 64*7, final add 9, encode: inversion 265 + 2
 FIELD_MULS_PER_VERIFY = (7 + 262 + 6) + (14 * 9 + 64 * (4 * 8 + 9)) \
     + 64 * 7 + 9 + (265 + 2)
-PRODUCTS_PER_FIELD_MUL = 100
+# of which squarings: decompress 4 + pow_p58 251, 4 in each of the 256
+# doublings, the inversion 254
+FIELD_SQS_PER_VERIFY = 4 + 251 + 256 * 4 + 254
+# limb products (32x32->64 multiply-adds): 100 a multiply, 55 a squaring
+# (csrc/field.cuh fe_sq)
+PRODUCTS_PER_VERIFY = (FIELD_MULS_PER_VERIFY - FIELD_SQS_PER_VERIFY) * 100 \
+    + FIELD_SQS_PER_VERIFY * 55
 
 # the fewest 32-bit integer instructions of one SHA-256 compression on
 # this ISA (a rotate is one funnel shift, a three-input xor, Ch or Maj one
@@ -210,8 +218,63 @@ def _adversarial(ed, seed, msg, sig):
     ]
 
 
+def _i32(x: int) -> int:
+    """x mod 2^32 as a signed 32-bit integer (an int32 sum that wraps)."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >> 31 else x
+
+
 def _flip(b: bytes, i: int, bit: int = 1) -> bytes:
     return b[:i] + bytes([b[i] ^ bit]) + b[i + 1:]
+
+
+# the item counts at which K5-K7 are held against their plain versions:
+# groups of four lanes and warps of eight signatures that end ragged, the
+# small commit, the stream's shape
+RAGGED_NS = (1, 7, 8, 9, N_SMALL, N_STREAM)
+
+
+def _lane_items(base, adv, n):
+    """n items cycling through ``base``, with adversarial class k at
+    position p of warp 8k + p (8 signatures a warp) for every class k and
+    every p in 0..7."""
+    items = [base[i % len(base)] for i in range(n)]
+    for k, case in enumerate(adv):
+        for p in range(8):
+            if 8 * (8 * k + p) + p < n:
+                items[8 * (8 * k + p) + p] = case
+    return items
+
+
+def _ptxas_lines(log: str):
+    """One line per kernel entry point of an nvcc -Xptxas -v log: its
+    registers, stack frame, spill stores and loads, and shared memory."""
+    import re
+
+    out, props, entries, name = [], {}, set(), None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            entries.add(name)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props[name] = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name in entries:
+            stack, st, ld = props.get(name, ("?", "?", "?"))
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            out.append(f"{name}: {m.group(1)} registers, {stack} bytes "
+                       f"stack, {st} bytes spill stores, {ld} bytes spill "
+                       f"loads, {smem.group(1) if smem else 0} bytes smem")
+    return out
 
 
 # --- timing -----------------------------------------------------------------
@@ -273,7 +336,7 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
     from tendermint_tpu_torch.types.errors import ErrWrongSignature
 
     tdevice.set_default_device(dev)
-    products = FIELD_MULS_PER_VERIFY * PRODUCTS_PER_FIELD_MUL
+    products = PRODUCTS_PER_VERIFY
 
     def bound(n_verify, nbytes):
         ops_s = n_verify * products / int32_peak
@@ -294,7 +357,13 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
     short_jobs = [(seeds_stream[i % 64],
                    bytes(rng.integers(0, 256, 1 + i % 40, dtype="uint8")))
                   for i in range(256)]
-    sigs = signer.sign(stream_jobs + short_jobs)
+    # preimages of three SHA-512 blocks (messages of 176 bytes and up)
+    long_jobs = [(seeds_stream[i % 64],
+                  bytes(rng.integers(0, 256, 176 + i, dtype="uint8")))
+                 for i in range(32)]
+    sb_big = big.commit.vote_sign_bytes_all(CHAIN_ID)
+    adv_job = [(seeds_stream[0], sb_big[0])]
+    sigs = signer.sign(stream_jobs + short_jobs + long_jobs + adv_job)
     workers = signer.workers
     say(f"phase sign: {N_SMALL + N_BIG + 64} keys, "
         f"{N_SMALL + N_BIG + len(sigs)} signatures with {workers} workers in "
@@ -304,73 +373,116 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
               for i, ((_, m), s) in enumerate(zip(stream_jobs, sigs))]
     short = [(pubs_stream[i % 64], m, s) for i, ((_, m), s) in
              enumerate(zip(short_jobs, sigs[N_STREAM:]))]
+    long_ = [(pubs_stream[i % 64], m, s) for i, ((_, m), s) in
+             enumerate(zip(long_jobs, sigs[N_STREAM + 256:]))]
     table = curve.base_table(dev)
 
     # -- 2. kernels against their plain versions ----------------------------
-    # dense: 4,096 items, NBLK 1 (short messages) and 2 (110-byte ones):
-    # valid, corrupted and adversarial
+    # dense: 4,096 items whose warps mix NBLK 1, 2 and 3 (short, 110-byte and
+    # long messages), valid, corrupted, and every adversarial class at every
+    # position of a warp; held equal to the plain version item by item at
+    # each count of RAGGED_NS (prefixes of the batch)
     adv = _adversarial(ed, seeds_stream[0], short[0][1], short[0][2])
-    items = list(short)
-    items += [(p, m, _flip(s, i % 64, 1 << (i % 8)))
-              for i, (p, m, s) in enumerate(short)]
-    items += adv
-    for i in range(N_STREAM - len(items)):
-        p, m, s = stream[i]
+    base = []
+    for i, (p, m, s) in enumerate(stream):
         if i % 3 == 1:
             s = _flip(s, (7 * i) % 64, 1 << (i % 8))
         elif i % 3 == 2:
             m = _flip(m, i % 110, 4)
-        items.append((p, m, s))
+        j = i % len(short)
+        base += [short[j], (p, m, s), long_[i % len(long_)],
+                 (short[j][0], short[j][1], _flip(short[j][2], i % 64,
+                                                  1 << (i % 8)))]
+    items = _lane_items(base, adv, N_STREAM)
     pks, msgs, sgs = (list(x) for x in zip(*items))
     bw, nblk, sw, ok = V.prepare_batch(pks, msgs, sgs)
     dense_args = [torch.from_numpy(x).to(dev) for x in
                   (V._as_i32(bw), nblk.astype(np.int32), V._as_i32(sw))]
-    k_np = V.verify_dense(*dense_args, table).cpu().numpy()
-    p_np = V.verify_dense_plain(*dense_args, table).cpu().numpy()
-    dense_err = int(np.abs(k_np.astype(np.int64) - p_np).max())
-    if not (k_np == p_np).all():
-        raise AssertionError("ed25519_verify_dense != plain at items "
-                             f"{np.nonzero(k_np != p_np)[0][:20].tolist()}")
-    lo = 2 * len(short)
-    sample = list(range(lo, lo + len(adv))) + list(range(0, len(items), 13))
-    want = [ed.verify(*items[i]) for i in sample]
+    dense_err = 0
+    for n_ in RAGGED_NS:
+        part = [x[:n_] for x in dense_args]
+        k_np = V.verify_dense(*part, table).cpu().numpy()
+        p_np = V.verify_dense_plain(*part, table).cpu().numpy()
+        dense_err = max(dense_err,
+                        int(np.abs(k_np.astype(np.int64) - p_np).max()))
+        if not (k_np == p_np).all():
+            raise AssertionError(
+                f"ed25519_verify_dense != plain at n={n_}, items "
+                f"{np.nonzero(k_np != p_np)[0][:20].tolist()}")
+    adv_at = [i for i in (8 * (8 * k + p) + p for k in range(len(adv))
+                          for p in range(8)) if i < N_SPARSE_CHECK]
+    sample = adv_at + list(range(0, len(items), 13))
+    spec = {}
+
+    def spec_of(item):
+        if item not in spec:
+            spec[item] = ed.verify(*item)
+        return spec[item]
+
+    want = [spec_of(items[i]) for i in sample]
     if (k_np & ok)[sample].tolist() != want:
         raise AssertionError("ed25519_verify_dense disagrees with the spec")
-    say(f"phase kernels: ed25519_verify_dense == plain on {len(items)} items "
-        f"(NBLK {sorted(set(nblk.tolist()))}, {int((k_np & ok).sum())} "
-        f"valid), == spec on {len(sample)} incl. {len(adv)} adversarial")
+    mixed = sum(len(set(nblk[w:w + 8].tolist())) > 1
+                for w in range(0, N_STREAM, 8))
+    say(f"phase kernels: ed25519_verify_dense == plain on every item at n = "
+        f"{', '.join(map(str, RAGGED_NS))} (NBLK {sorted(set(nblk.tolist()))}"
+        f" mixed in {mixed} of {N_STREAM // 8} warps; "
+        f"{int((k_np & ok).sum())} valid), == spec on {len(sample)} incl. "
+        f"{len(adv)} adversarial classes at every position of a warp")
 
     # sparse: rows of the big commit (every 17th signature flipped) packed in
-    # chunks of CHUNK, padded rows included
-    sb_big = big.commit.vote_sign_bytes_all(CHAIN_ID)
+    # chunks of CHUNK, padded rows included, with every adversarial class at
+    # every position of a warp; held equal to the plain version at each
+    # count of RAGGED_NS and on the whole
+    adv_sp = _adversarial(ed, seeds_stream[0], sb_big[0], sigs[-1])
     sp_items = [(big.valset.validators[i].pub_key.bytes(), sb_big[i],
                  sigs_big[i] if i % 17 else _flip(sigs_big[i], 40, 2))
                 for i in range(N_SPARSE_CHECK)]
+    sp_items = _lane_items(sp_items, adv_sp, N_SPARSE_CHECK)
     pks, msgs, sgs = (list(x) for x in zip(*sp_items))
     packed = V.pack_sparse(pks, msgs, sgs, CHUNK)
     sp_args = [torch.from_numpy(np.array(x)).to(dev) for x in packed[:7]]
-    k_np = V.verify_sparse(*sp_args, CHUNK, table).cpu().numpy()
-    p_np = V.verify_sparse_plain(*sp_args, CHUNK, table).cpu().numpy()
-    sparse_err = int(np.abs(k_np.astype(np.int64) - p_np).max())
-    if not (k_np == p_np).all():
-        raise AssertionError("ed25519_verify_sparse != plain at rows "
-                             f"{np.nonzero(k_np != p_np)[0][:20].tolist()}")
+    sparse_err = 0
+    for n_ in sorted(set(RAGGED_NS + (sp_args[3].shape[0],))):
+        part = [sp_args[0][:-(-n_ // CHUNK)], sp_args[1]] + \
+            [x[:n_] for x in sp_args[2:]]
+        k_np = V.verify_sparse(*part, CHUNK, table).cpu().numpy()
+        p_np = V.verify_sparse_plain(*part, CHUNK, table).cpu().numpy()
+        sparse_err = max(sparse_err,
+                         int(np.abs(k_np.astype(np.int64) - p_np).max()))
+        if not (k_np == p_np).all():
+            raise AssertionError(
+                f"ed25519_verify_sparse != plain at n={n_}, rows "
+                f"{np.nonzero(k_np != p_np)[0][:20].tolist()}")
     verdict = k_np[:N_SPARSE_CHECK] & packed[7]
+    expect = [bool(i % 17) for i in range(N_SPARSE_CHECK)]
+    for i in adv_at:
+        expect[i] = spec_of(sp_items[i])
     sample = list(range(0, N_SPARSE_CHECK, 15)) + [0, 17, 34, 51]
-    if verdict[sample].tolist() != [ed.verify(*sp_items[i]) for i in sample]:
+    if verdict[sample].tolist() != [spec_of(sp_items[i]) for i in sample]:
         raise AssertionError("ed25519_verify_sparse disagrees with the spec")
-    if verdict.tolist() != [bool(i % 17) for i in range(N_SPARSE_CHECK)]:
+    if verdict.tolist() != expect:
         raise AssertionError("ed25519_verify_sparse: wrong verdicts")
-    say(f"phase kernels: ed25519_verify_sparse == plain on {k_np.shape[0]} "
-        f"rows ({packed[1].shape[0]} diff columns, "
-        f"{k_np.shape[0] - N_SPARSE_CHECK} padded), == spec on {len(sample)}")
+    say(f"phase kernels: ed25519_verify_sparse == plain on every row at n = "
+        f"{', '.join(map(str, RAGGED_NS))} and {k_np.shape[0]} "
+        f"({packed[1].shape[0]} diff columns, "
+        f"{k_np.shape[0] - N_SPARSE_CHECK} padded), every adversarial class "
+        f"at every position of a warp, == spec on {len(sample)}")
 
-    x = torch.randint(0, 256, (256, 128), dtype=torch.uint8, device=dev)
-    k_sum, p_sum = V.probe_sum(x).item(), V.probe_sum_plain(x).item()
-    if not k_sum == p_sum == int(x.to(torch.int64).sum().item()):
-        raise AssertionError(f"probe_sum_u8 {k_sum} != plain {p_sum}")
-    probe_err = abs(k_sum - p_sum)
-    say(f"phase kernels: probe_sum_u8 == plain ({k_sum})")
+    # the probe at 32 KB, and on 9 MB of 0xFF, whose sum (2,406,481,920)
+    # wraps past 2^31
+    probe_err = 0
+    for x in (torch.randint(0, 256, (256, 128), dtype=torch.uint8,
+                            device=dev),
+              torch.full((PROBE_WRAP_BYTES,), 0xFF, dtype=torch.uint8,
+                         device=dev)):
+        k_sum, p_sum = V.probe_sum(x).item(), V.probe_sum_plain(x).item()
+        if not k_sum == p_sum == _i32(int(x.to(torch.int64).sum().item())):
+            raise AssertionError(f"probe_sum_u8 at {x.numel()} bytes: "
+                                 f"{k_sum} != plain {p_sum}")
+        probe_err = max(probe_err, abs(k_sum - p_sum))
+        say(f"phase kernels: probe_sum_u8 == plain at {x.numel()} bytes "
+            f"({k_sum}) in {V.probe_blocks(x.numel())} blocks")
 
     # -- 3. the main path ----------------------------------------------------
     main_launches = dict.fromkeys(V.launches, 0)
@@ -472,15 +584,24 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
     d1 = [torch.from_numpy(x).to(dev) for x in
           (V._as_i32(bw1), nb1.astype(np.int32), V._as_i32(sw1))]
     d1_ms = _time_ms(lambda: V.verify_dense(*d1, table), dev, 20)
+    d1_plain = _time_ms(lambda: V.verify_dense_plain(*d1, table), dev, 1)
+    d1_bound, d1_by = bound(bw1.shape[0], bw1.nbytes + nb1.nbytes
+                            + sw1.nbytes + bw1.shape[0] + table.numel() * 4)
     say(f"times: ed25519_verify_dense {bw.shape[0]} x NBLK {bw.shape[1]}: "
         f"{d_ms:.4f} ms (plain {d_plain:.1f} ms, bound {d_bound:.4f} ms by "
-        f"{d_by}); {N_SMALL} x NBLK {bw1.shape[1]}: {d1_ms:.4f} ms ({smi})")
+        f"{d_by}); {N_SMALL} x NBLK {bw1.shape[1]}: {d1_ms:.4f} ms (plain "
+        f"{d1_plain:.1f} ms, bound {d1_bound:.4f} ms by {d1_by}) ({smi})")
     kernels.append({"name": "ed25519_verify_dense",
                     "shape": f"{bw.shape[0]} items x NBLK {bw.shape[1]}",
                     "launches": main_launches["ed25519_verify_dense"],
                     "max_abs_err": dense_err, "ms": d_ms,
                     "plain_ms": d_plain, "bound_ms": d_bound,
-                    "bound_by": d_by, "library_ms": None})
+                    "bound_by": d_by, "library_ms": None,
+                    f"shape_{N_SMALL}": f"{N_SMALL} items x NBLK "
+                                        f"{bw1.shape[1]}",
+                    f"ms_{N_SMALL}": d1_ms, f"plain_ms_{N_SMALL}": d1_plain,
+                    f"bound_ms_{N_SMALL}": d1_bound,
+                    f"bound_by_{N_SMALL}": d1_by})
 
     # sparse at the big commit's segment launches
     cols = big.commit.vote_sign_bytes_columns(CHAIN_ID)
@@ -495,6 +616,13 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
         seg_args.append([torch.from_numpy(np.array(a)).to(dev)
                          for a in pk[:7]])
         lo = hi
+    for a in seg_args:
+        k_seg = V.verify_sparse(*a, CHUNK, table)
+        sparse_err = max(sparse_err, _same(
+            f"ed25519_verify_sparse at {a[3].shape[0]} rows", k_seg,
+            V.verify_sparse_plain(*a, CHUNK, table)))
+    say(f"phase kernels: ed25519_verify_sparse == plain on every row of the "
+        f"{N_BIG}-signature commit's segments ({seg_rows} rows)")
     s_ms = _time_ms(lambda: [V.verify_sparse(*a, CHUNK, table)
                              for a in seg_args], dev)
     s_plain = _time_ms(lambda: [V.verify_sparse_plain(*a, CHUNK, table)
@@ -607,7 +735,7 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
 
     t_phase = time.perf_counter()
     table = curve.base_table(dev)
-    products = FIELD_MULS_PER_VERIFY * PRODUCTS_PER_FIELD_MUL
+    products = PRODUCTS_PER_VERIFY
     # the big commit's signatures, every 97th with its s half zeroed (host
     # valid, rejected by the kernel), each of power 2^40
     pks, msgs, sigs0 = big_items
@@ -669,10 +797,10 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     x4 = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
         0, 256, P4_BYTES, dtype=np.uint8)).to(dev)
     k4, p4 = V.probe_sum(x4).item(), V.probe_sum_plain(x4).item()
-    if not k4 == p4 == int(x4.to(torch.int64).sum().item()):
+    if not k4 == p4 == _i32(int(x4.to(torch.int64).sum().item())):
         raise AssertionError(f"probe_sum_u8 at 4 MB: {k4} != plain {p4}")
     say(f"phase kernels: probe_sum_u8 (P4) == plain at {P4_BYTES} bytes "
-        f"({k4})")
+        f"({k4}) in {V.probe_blocks(P4_BYTES)} blocks")
 
     # -- the paths, counts zeroed just before and read just after ------------
     V.reset_launches()
@@ -748,8 +876,12 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
                              f"{p4_launches}")
     for line in DP.to_markdown(cost).splitlines():
         say(f"  {line}")
+    seg_chunks = MD._seg_chunks_from_cost_model(cost, CHUNK)
     say(f"phase sharded: device_profile cost-model (4 MB, 4 runs) ok; "
-        f"probe_sum_u8 launches {p4_launches}")
+        f"probe_sum_u8 launches {p4_launches}; fixed dispatch "
+        f"{cost['results']['fixed_dispatch_ms']['min']:.4f} ms (min) -> "
+        f"segments of {seg_chunks} chunks of {CHUNK} "
+        f"(multidevice._seg_chunks_from_cost_model)")
 
     V.reset_launches()
     ST.reset_launches()
@@ -817,6 +949,12 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     say(f"times: probe_sum_u8 (P4) {P4_BYTES} bytes: {p4_ms:.4f} ms (plain "
         f"{p4_plain:.4f} ms, torch.sum {p4_lib:.4f} ms, bound "
         f"{p4_bound:.6f} ms by {p4_by}) ({smi})")
+    # the cost model times this kernel as the fixed cost of a dispatch: it
+    # must cost no more than the library's sum of the same bytes (2x leaves
+    # room for the card's noise)
+    if p4_ms > 2 * p4_lib:
+        raise AssertionError(f"probe_sum_u8 at {P4_BYTES} bytes: {p4_ms:.4f}"
+                             f" ms, over 2x torch.sum's {p4_lib:.4f} ms")
 
     def record(name, shape, launches, err, ms, plain, bound, by, lib=None,
                **extra):
@@ -850,6 +988,7 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     return {"kernels": kernels, "summary": {
         "tally": totals[1], "multidev_ms": md_ms,
         "multidev_launches": md_launches, "cost_model": cost["results"],
+        "cost_model_seg_chunks": seg_chunks,
         "scale_cell": cell["rows"], "phase_s": phase_s}}
 
 
@@ -1654,9 +1793,8 @@ def main() -> int:
         for lib in pkg.sources:
             pkg.library(lib)
         for lib, log in pkg.build_logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"ptxas {lib}: {line.strip()}")
+            for line in _ptxas_lines(log):
+                say(f"ptxas {lib}: {line}")
     say(f"phase card: kernels built in {time.perf_counter() - t0:.1f} s")
     int32_peak = (props.multi_processor_count * INT32_LANES_PER_SM
                   * max_sm_mhz * 1e6)

@@ -21,7 +21,8 @@ PACKAGE = CudaPackage(
         "tm_ed25519_verify_tally": (
             "tally", [c_void_p] * 7 + [c_int, c_int, c_void_p]),
         "tm_probe_sum_u8": ("probe", [c_void_p, c_longlong, c_void_p,
-                                      c_void_p]),
+                                      c_void_p, c_int, c_void_p]),
+        "tm_probe_blocks": ("probe", [c_longlong, c_int]),
         "tm_stub_verify_dense": (
             "stub", [c_void_p] * 7 + [c_int, c_int, c_int, c_void_p]),
         "tm_stub_verify_sparse": (

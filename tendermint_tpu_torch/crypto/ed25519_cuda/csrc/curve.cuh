@@ -1,5 +1,9 @@
 // edwards25519 group operations, one point per thread.
 //
+// The additions, the doubling and the two scalar multiplies serve the
+// one-thread verify that K8 keeps (verify.cuh); K5-K7 run them on four
+// lanes a point (lanes.cuh). Decompression and the encoding serve both.
+//
 // Counterpart of K4 (tendermint_tpu/crypto/ed25519_jax/curve.py: decompress,
 // encode, add/dbl/add_niels, scalar_mul_windowed, scalar_mul_base). Same
 // formulas: extended coordinates (X, Y, Z, T) with the complete a = -1

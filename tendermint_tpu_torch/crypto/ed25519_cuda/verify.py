@@ -9,12 +9,13 @@ of work is the same:
   the 32-byte s — dense blocks (:func:`prepare_batch`), or the sparse wire
   format of a per-chunk template plus the differing columns
   (:func:`prepare_sparse_stream`);
-* device: one thread per signature runs SHA-512, the reduction mod L,
-  decompression of A, [s]B + [h](-A), the encoding and the compare with R
-  (``csrc/verify.cu``: ``ed25519_verify_dense`` for K5/K6,
-  ``ed25519_verify_sparse`` for K7; ``csrc/tally.cu``:
-  ``ed25519_verify_tally`` for K8, the dense verify plus the masked sum of
-  each accepted signature's 8-bit power limbs, for sharded.py).
+* device: SHA-512, the reduction mod L, decompression of A, [s]B +
+  [h](-A), the encoding and the compare with R. ``csrc/verify.cu`` runs a
+  group of four lanes per signature (``ed25519_verify_dense`` for K5/K6,
+  ``ed25519_verify_sparse`` for K7); ``csrc/tally.cu`` one thread per
+  signature (``ed25519_verify_tally`` for K8, the dense verify plus the
+  masked sum of each accepted signature's 8-bit power limbs, for
+  sharded.py).
 
 The verdict is ``kernel & ok``, where ``ok`` is the host mask, exactly as
 in the JAX package. Arrays are item-major here (one row per signature):
@@ -215,6 +216,32 @@ def verify_tally(blocks: torch.Tensor, nblk: torch.Tensor,
     return out.view(torch.bool), sums
 
 
+#: blocks a multiprocessor of the probe's grid, at most
+PROBE_BLOCKS_PER_SM = 4
+# (device index, stream) -> the probe's partials and finished-block
+# counter: one launch at a time on a stream, so launches there share them
+_PROBE_WORKSPACE = {}
+_PROBE_LOCK = threading.Lock()
+
+
+def _probe_workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    ws = _PROBE_WORKSPACE.get(key)
+    if ws is None:
+        with _PROBE_LOCK:
+            ws = _PROBE_WORKSPACE.get(key)
+            if ws is None:
+                ws = torch.zeros(_probe_cap(dev) + 1, dtype=torch.int32,
+                                 device=dev)
+                _PROBE_WORKSPACE[key] = ws
+    return ws
+
+
+def _probe_cap(dev: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * PROBE_BLOCKS_PER_SM
+
+
 def probe_sum(x: torch.Tensor) -> torch.Tensor:
     """K11: the int32 sum of a uint8 tensor, as a (1,) int32 tensor."""
     if x.dtype != torch.uint8 or not x.is_contiguous():
@@ -222,14 +249,26 @@ def probe_sum(x: torch.Tensor) -> torch.Tensor:
     dev = _same_device([x], "probe_sum_u8")
     if dev.type == "cpu":
         return probe_sum_plain(x)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
     lib = build.PACKAGE.library("probe")
     with _on_device(dev):
+        out = torch.empty(1, dtype=torch.int32, device=dev)
+        stream = _stream_ptr(dev)
+        ws = _probe_workspace(dev, stream)
         rc = lib.tm_probe_sum_u8(x.data_ptr(), x.numel(), out.data_ptr(),
-                                 _stream_ptr(dev))
+                                 ws.data_ptr(), ws.numel() - 1, stream)
     _launch_check(rc, "probe_sum_u8")
     _count("probe_sum_u8")
     return out
+
+
+def probe_blocks(nbytes: int, device: Optional[torch.device] = None) -> int:
+    """The number of blocks :func:`probe_sum` launches over ``nbytes``
+    bytes on ``device`` (the current card by default): one up to 32 KB,
+    more than one from 64 KB up."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else device
+    return build.PACKAGE.library("probe").tm_probe_blocks(nbytes,
+                                                          _probe_cap(dev))
 
 
 # --- plain PyTorch versions ------------------------------------------------

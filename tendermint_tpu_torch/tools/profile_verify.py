@@ -14,6 +14,11 @@ size, one JSON line:
 * ``host_other_ms``: wall time outside every segment (sign-bytes, the
   ``BatchVerifier.add`` loop, the precedence replay).
 
+Then, for the K11/P4 probe at 32 KB and 4 MB, one JSON line each: the
+device time of one ``probe_sum`` and of one ``torch.sum(x,
+dtype=torch.int32)`` by activity (``torch.profiler``), and the host time a
+call takes to return (its enqueue, the wrappers included).
+
 Run on the card: ``python -m tendermint_tpu_torch.tools.profile_verify``.
 ``--trace-dir`` keeps the Chrome traces.
 """
@@ -33,6 +38,7 @@ import torch
 
 from ..crypto import phases
 from ..crypto.ed25519_cuda import build
+from ..crypto.ed25519_cuda import verify as V
 from ..device import set_default_device
 from . import commits
 
@@ -89,6 +95,33 @@ def profile_commit(fx: commits.CommitFixture, reps: int, trace_dir: str):
     }
 
 
+def profile_probe(dev: torch.device, nbytes: int, reps: int) -> dict:
+    """Device and host time of one K11 probe and one ``torch.sum`` over the
+    same ``nbytes`` bytes on ``dev``."""
+    x = torch.from_numpy(np.random.default_rng(nbytes).integers(
+        0, 256, nbytes, dtype=np.uint8)).to(dev)
+    rec = {"probe_bytes": nbytes, "reps": reps,
+           "probe_blocks": V.probe_blocks(nbytes, dev)}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in (("probe_sum", lambda: V.probe_sum(x)),
+                     ("torch_sum", lambda: torch.sum(x, dtype=torch.int32))):
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+        rec[name] = {"device_ms": _device_ms(prof, reps),
+                     "host_ms_per_call": host_s * 1e3 / reps}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="150,1000,10240")
@@ -112,6 +145,10 @@ def main(argv=None) -> int:
                     for n in args.sizes.split(",")]
     for fx in fixtures:
         rec = profile_commit(fx, args.reps, args.trace_dir)
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+    for nbytes in (32 << 10, 4 << 20):
+        rec = profile_probe(dev, nbytes, 200)
         rec["card"] = card
         print(json.dumps(rec), flush=True)
     return 0

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from tendermint_tpu_torch import device
 from tendermint_tpu_torch.crypto import Ed25519PubKey
 from tendermint_tpu_torch.crypto import batch as tbatch
@@ -139,11 +141,114 @@ def test_sparse_kernel_matches_plain_and_spec(_card):
     assert (got[:20] & packed[7]).tolist() == [ed.verify(*c) for c in cases]
 
 
+def _lane_cases(seed):
+    """Valid and corrupted signatures over messages of 1, 2 and 3 SHA-512
+    blocks (so a warp's eight groups hash different block counts), and the
+    adversarial classes of chip_smoke.py for one of them."""
+    rng = np.random.default_rng(seed)
+    base = []
+    for i in range(12):
+        priv, pub = ed.keygen(bytes(rng.integers(0, 256, 32, dtype=np.uint8)))
+        msg = bytes(rng.integers(0, 256, (20, 110, 200)[i % 3], np.uint8))
+        sig = ed.sign(priv, msg)
+        base += [(pub, msg, sig), (pub, msg, sig[:5] + bytes([sig[5] ^ 1])
+                                   + sig[6:])]
+    seed_b = b"\x09" * 32
+    priv, pub = ed.keygen(seed_b)
+    msg = base[0][1]
+    adv = chip_smoke._adversarial(ed, seed_b, msg, ed.sign(priv, msg))
+    return base, adv
+
+
+@pytest.mark.parametrize("n", chip_smoke.RAGGED_NS)
+def test_dense_kernel_on_ragged_groups_and_lanes(_card, n):
+    """K5/K6 on four lanes a signature: at counts that end a group or a
+    warp ragged, with NBLK 1-3 mixed inside warps and every adversarial
+    class at every position of a warp, equal to the plain version on
+    every item and to the spec."""
+    base, adv = _lane_cases(11)
+    items = chip_smoke._lane_items(base, adv, max(n, 8 * 8 * len(adv)))[:n]
+    pks, msgs, sigs = (list(x) for x in zip(*items))
+    bw, nblk, sw, ok = TV.prepare_batch(pks, msgs, sigs)
+    args = [torch.from_numpy(x).to(_card) for x in
+            (TV._as_i32(bw), nblk.astype(np.int32), TV._as_i32(sw))]
+    table = TC.base_table(_card)
+    got = TV.verify_dense(*args, table).cpu().numpy()
+    assert got.tolist() == TV.verify_dense_plain(*args,
+                                                 table).cpu().tolist()
+    spec = {c: ed.verify(*c) for c in set(items)}
+    assert (got & ok).tolist() == [spec[c] for c in items]
+
+
+@pytest.mark.parametrize("n", chip_smoke.RAGGED_NS)
+def test_sparse_kernel_on_ragged_groups_and_lanes(_card, n):
+    """K7 on four lanes a signature: rows of 40 to 56 bytes (one or two
+    SHA-512 blocks inside a warp) in chunks of 64, every adversarial class
+    at every position of a warp, equal to the plain version on every row
+    and to the spec."""
+    rng = np.random.default_rng(12)
+    prefix = bytes(rng.integers(0, 256, 40, np.uint8))
+    base = []
+    for i in range(17):
+        priv, pub = ed.keygen(bytes([i + 40]) * 32)
+        msg = prefix + bytes(rng.integers(0, 256, i, np.uint8))
+        sig = ed.sign(priv, msg)
+        if i % 4 == 3:
+            sig = sig[:44] + bytes([sig[44] ^ 16]) + sig[45:]
+        base.append((pub, msg, sig))
+    seed_b = b"\x0a" * 32
+    priv, pub = ed.keygen(seed_b)
+    adv = chip_smoke._adversarial(ed, seed_b, base[5][1],
+                                  ed.sign(priv, base[5][1]))
+    items = chip_smoke._lane_items(base, adv, max(n, 8 * 8 * len(adv)))[:n]
+    packed = TV.pack_sparse(*(list(x) for x in zip(*items)), 64)
+    args = [torch.from_numpy(np.array(x)).to(_card) for x in packed[:7]]
+    table = TC.base_table(_card)
+    got = TV.verify_sparse(*args, 64, table).cpu().numpy()
+    assert got.tolist() == TV.verify_sparse_plain(*args, 64,
+                                                  table).cpu().tolist()
+    spec = {c: ed.verify(*c) for c in set(items)}
+    assert (got[:n] & packed[7]).tolist() == [spec[c] for c in items]
+
+
 def test_probe_kernel_matches_plain(_card):
     x = torch.randint(0, 256, (256, 128), dtype=torch.uint8, device=_card)
     assert TV.probe_sum(x).item() == TV.probe_sum_plain(x).item()
     assert TV.probe_dispatch_seconds(_card) > 0
     assert TV.launches["probe_sum_u8"] == 2
+
+
+def test_probe_kernel_is_a_grid_reduction(_card):
+    """K11/P4 over many blocks: equal to the plain version at 32 KB, 4 MB,
+    on 9 MB of 0xFF (a sum that wraps past 2^31) and on unaligned and
+    ragged slices, one after another on one stream (the last block of each
+    sets the finished-block counter back to 0) and on a second stream; one
+    block at 32 KB, more than one from 64 KB up."""
+    assert TV.probe_blocks(32 << 10) == 1
+    assert TV.probe_blocks(64 << 10) > 1 and TV.probe_blocks(4 << 20) > 1
+    g = torch.Generator().manual_seed(3)
+    big = torch.randint(0, 256, ((4 << 20) + 64,), dtype=torch.uint8,
+                        generator=g).to(_card)
+    cases = [big[:32 << 10], big[:4 << 20],
+             torch.full((9 << 20,), 0xFF, dtype=torch.uint8, device=_card)]
+    cases += [big[off:off + size] for off in (1, 3, 15)
+              for size in (0, 1, 15, 17, 4099, (64 << 10) + 5)]
+    # every output is kept until all ran: a launch that left its output
+    # unwritten cannot read back an earlier result from a reused block
+    outs = [TV.probe_sum(x) for x in cases]
+    for x, out in zip(cases, outs):
+        want = int(x.to(torch.int64).sum().item()) & 0xFFFFFFFF
+        got = out.item()
+        assert got == TV.probe_sum_plain(x).item()
+        assert got & 0xFFFFFFFF == want
+    assert TV.probe_sum(cases[2]).item() == 2_406_481_920 - (1 << 32)
+    side = torch.cuda.Stream(_card)
+    side.wait_stream(torch.cuda.current_stream(_card))
+    with torch.cuda.stream(side):
+        got = [TV.probe_sum(x) for x in cases[:3]]
+    side.synchronize()
+    assert [g.item() for g in got] == [TV.probe_sum_plain(x).item()
+                                       for x in cases[:3]]
 
 
 def test_batch_verifier_on_card(_card):
