@@ -37,15 +37,20 @@ Phases, each reported on its own line:
    execute and commit+persist, with the merkle root time and the kernel's
    device time inside commit. The last app hash must equal the recursive
    hashlib spec over the whole state.
-6. bls: aggregated BLS12-381 commits. The G2-add kernel
+6. bls: aggregated BLS12-381 commits. The G2-add round
    (``bls_g2_add_round``, K10) against its plain version on 4,096 lanes of
-   every lane class and against the curve spec on a sample; aggregated
-   commits of 150 and 1,000 validators through verify_commit,
-   verify_commit_light and verify_commit_light_trusting (the aggregate-
-   pubkey tree: 8 and 10 launches), three commits that must be rejected
-   (a wrong aggregate, a sub-quorum bitmap, a single signer: the one-key
-   probe); the kernel's times, the verify rate on the cuda and scalar
-   routes, and where a verify spends its time; then a 150-validator
+   every lane class and against the curve spec on a sample, the Fq product
+   (``bls_fq_mul``) on edge limbs, and the one-launch tree
+   (``bls_g2_tree_sum``) against the plain tree on every limb of the root
+   at 1, 150, 257, 1,000, 1,024 and 10,000 keys (the most signers of a
+   commit) with a doubling and a cancel in the tree; aggregated commits of
+   150 and 1,000 validators through verify_commit, verify_commit_light and
+   verify_commit_light_trusting (one tree launch each), three commits that
+   must be rejected (a wrong aggregate, a sub-quorum bitmap, a single
+   signer: the one-key probe, one round); the kernels' times (the
+   product's latency alone and the tree's critical path), the
+   verify rate on the cuda and scalar routes, and where a verify spends
+   its time; then a 150-validator
    bls12381 chain (proof of possession for every genesis key) applied for
    three heights whose LastCommit is an aggregated commit made by the
    VoteSet from 150 MockPV precommits.
@@ -136,11 +141,15 @@ BLS_APPLY_TXS = 256
 # the kernel's own work: Fq products of a lane that adds two finite
 # points (44) or doubles (39), each 300 32x32->64 multiply-adds (CIOS on
 # 12 limbs), and 3 lanes of 288 bytes moved per lane (P, Q read, sum
-# written)
+# written); the tree's check sizes; the product levels of one addition
+# (its critical path) and the dependent products timed alone
 FQ_MULS_ADD = 44
 FQ_MULS_DBL = 39
 PRODUCTS_PER_FQ_MUL = 300
 G2_LANE_BYTES = 288
+BLS_TREE_CHECK_SIZES = (1, 150, 257, 1000, 1024, 10000)
+G2_PRODUCT_LEVELS = 5
+FQ_CHAIN_REPS = 20_000
 
 TPU_KERNELS = {
     "ed25519_verify_dense": (
@@ -156,6 +165,9 @@ TPU_KERNELS = {
     "bls_g2_add_round": "tendermint_tpu/crypto/bls12381/vec.py:285 "
                         "(_g2_add_round over g2_add_vec :227 and mont_mul "
                         ":141, K10)",
+    "bls_g2_tree_sum": "tendermint_tpu/crypto/bls12381/vec.py:285 "
+                       "(_g2_add_round, K10, one launch a level from "
+                       "aggregate_pubkeys_vec :321)",
     "ed25519_verify_tally": (
         "tendermint_tpu/crypto/ed25519_jax/sharded.py:78 (full_step, built "
         "by _sharded_step :66, jit :94, K8)"),
@@ -173,6 +185,8 @@ SOURCES = {
     "probe_sum_u8": "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/probe.cu",
     "sha256_many": "tendermint_tpu_torch/crypto/merkle_cuda/csrc/sha256.cu",
     "bls_g2_add_round":
+        "tendermint_tpu_torch/crypto/bls12381_cuda/csrc/g2_add.cu",
+    "bls_g2_tree_sum":
         "tendermint_tpu_torch/crypto/bls12381_cuda/csrc/g2_add.cu",
     "ed25519_verify_tally":
         "tendermint_tpu_torch/crypto/ed25519_cuda/csrc/tally.cu",
@@ -1314,6 +1328,19 @@ def _g2_bound(launches, int32_peak):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
+def _g2_tree_bound(n, int32_peak):
+    """Least time for one launch of the n-key tree: the Fq products of its
+    additions of two finite points over the INT32 rate, or its padded
+    lanes read once and the root written once over the memory rate."""
+    ops = sum(a for _, a, _ in _tree_launches(n)) * FQ_MULS_ADD \
+        * PRODUCTS_PER_FQ_MUL
+    width = 2 * _tree_launches(n)[0][0]
+    ops_s = ops / int32_peak
+    bytes_s = (width + 1) * G2_LANE_BYTES / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
 def _tree_launches(n):
     """(lanes, adding lanes, 0) of each launch of an n-key tree: the
     padded width halves each round and a lane adds two finite points
@@ -1328,16 +1355,10 @@ def _tree_launches(n):
     return out
 
 
-def _tree(lanes, add):
-    while lanes.shape[0] > 1:
-        half = lanes.shape[0] // 2
-        lanes = add(lanes[:half], lanes[half:])
-    return lanes
-
-
 class _BlsTimers:
-    """Patches the routed verify's steps with timers: the K10 launches
-    (CUDA events), hash_to_g1 and the pairing (host clock)."""
+    """Patches the routed verify's steps with timers: the K10 launches, the
+    tree and the one-key round (CUDA events), hash_to_g1 and the pairing
+    (host clock)."""
 
     def __init__(self):
         from tendermint_tpu_torch.crypto.bls12381 import vec as BV
@@ -1354,32 +1375,33 @@ class _BlsTimers:
             return out
         return wrapper
 
-    def __enter__(self):
+    def _evented(self, fn):
         import torch
 
-        self._orig = (self.G.g2_add_round, self.BV.hash_to_g1,
-                      self.BV.multi_pairing_check)
-        add = self._orig[0]
-
-        def timed_add(p, q):
-            if p.device.type != "cuda":
-                return add(p, q)
+        def wrapper(*lanes):
+            if lanes[0].device.type != "cuda":
+                return fn(*lanes)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = add(p, q)
+            out = fn(*lanes)
             end.record()
             self.events.append((start, end))
             return out
+        return wrapper
 
-        self.G.g2_add_round = timed_add
-        self.BV.hash_to_g1 = self._timed(self._orig[1], self.h2c_s)
-        self.BV.multi_pairing_check = self._timed(self._orig[2],
+    def __enter__(self):
+        self._orig = (self.G.tree_sum, self.G.g2_add_round,
+                      self.BV.hash_to_g1, self.BV.multi_pairing_check)
+        self.G.tree_sum = self._evented(self._orig[0])
+        self.G.g2_add_round = self._evented(self._orig[1])
+        self.BV.hash_to_g1 = self._timed(self._orig[2], self.h2c_s)
+        self.BV.multi_pairing_check = self._timed(self._orig[3],
                                                   self.pairing_s)
         return self
 
     def __exit__(self, *exc):
-        (self.G.g2_add_round, self.BV.hash_to_g1,
+        (self.G.tree_sum, self.G.g2_add_round, self.BV.hash_to_g1,
          self.BV.multi_pairing_check) = self._orig
 
     def clear(self):
@@ -1398,15 +1420,28 @@ class _BlsTimers:
                 "pairing_ms": sum(self.pairing_s) * 1e3}
 
 
+def _limb_diff(k, p):
+    """The largest difference of two uint32 tensors, limb by limb."""
+    import torch
+
+    ki = k.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    pi = p.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return int((ki - pi).abs().max().item())
+
+
 def bls_check(dev, int32_peak) -> dict:
-    """Phase kernels for K10: the kernel equals its plain version on
-    BLS_CHECK_LANES lanes of every class, and a sample of its sums equals
-    the curve spec's. Returns the largest limb difference and the check
-    launch's numbers."""
+    """Phase kernels for K10: the round equals its plain version on
+    BLS_CHECK_LANES lanes of every class and a sample of its sums the
+    curve spec's; the Fq product equals its plain version on edge limbs;
+    the tree equals the plain tree on every limb of the root at
+    BLS_TREE_CHECK_SIZES keys. Returns the largest limb difference of each
+    and the check launch's numbers."""
     import numpy as np
     import torch
 
+    from tendermint_tpu_torch.crypto.bls12381 import vec as BV
     from tendermint_tpu_torch.crypto.bls12381.curve import g2_to_affine
+    from tendermint_tpu_torch.crypto.bls12381.field import P
     from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as G
     from tendermint_tpu_torch.tools import g2_lanes
 
@@ -1414,14 +1449,15 @@ def bls_check(dev, int32_peak) -> dict:
     ps, qs, kinds = g2_lanes.lane_pairs(np.random.default_rng(SEED + 4),
                                         BLS_CHECK_LANES)
     p, q = G.to_lanes(ps, dev), G.to_lanes(qs, dev)
-    k, pl = G.g2_add_round(p, q), G.g2_add_round_plain(p, q)
-    ki = k.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    pi = pl.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    err = int((ki - pi).abs().max().item())
-    if err:
-        bad = torch.nonzero((ki != pi).flatten(1).any(1)).flatten()[:20]
-        raise AssertionError(f"bls_g2_add_round != plain at lanes "
-                             f"{bad.tolist()} ({[kinds[i] for i in bad]})")
+    pl = G.g2_add_round_plain(p, q)
+    k = G.g2_add_round(p, q)
+    if not torch.equal(k.view(torch.int32), pl.view(torch.int32)):
+        bad = torch.nonzero((k.view(torch.int32) != pl.view(
+            torch.int32)).flatten(1).any(1)).flatten()[:20]
+        raise AssertionError(
+            f"bls_g2_add_round != plain at lanes {bad.tolist()} "
+            f"({[kinds[i] for i in bad]})")
+    err = _limb_diff(k, pl)
     sample = [i for i in range(0, BLS_CHECK_LANES, 7)
               if kinds[i] != "junk"]
     out = G.from_lanes(k[:max(sample) + 1])
@@ -1435,8 +1471,42 @@ def bls_check(dev, int32_peak) -> dict:
     n_dbl = sum(kd in ("double", "double-z") for kd in kinds)
     say(f"phase kernels: bls_g2_add_round == plain on {BLS_CHECK_LANES} lanes"
         f" ({', '.join(f'{c} {kinds.count(c)}' for c in g2_lanes.CLASSES)}),"
-        f" == the curve spec on {len(sample)} ({time.perf_counter() - t0:.1f}"
-        f" s)")
+        f" == the curve spec on {len(sample)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    rng = np.random.default_rng(SEED + 9)
+    vals = [0, 1, 2, P - 1, P - 2, pow(2, 384, P)] + [
+        (2**384 - d) % P for d in (1, 2, 2**32, 2**64 + 1)] + [
+        int.from_bytes(rng.bytes(48), "little") % P for _ in range(22)]
+    a = torch.from_numpy(G.fq_to_limbs([x for x in vals for _ in vals]))
+    b = torch.from_numpy(G.fq_to_limbs([y for _ in vals for y in vals]))
+    a, b = a.to(dev), b.to(dev)
+    for reps in (1, 3):
+        want = a
+        for _ in range(reps):
+            want = G.fq_mul_plain(want, b)
+        err = max(err, _limb_diff(G.fq_mul(a, b, reps), want))
+    if err:
+        raise AssertionError(f"bls_fq_mul != plain (max limb diff {err})")
+    say(f"phase kernels: bls_fq_mul == plain on {a.shape[0]} pairs of edge "
+        f"and random limbs, once and 3 times in a row")
+
+    t0 = time.perf_counter()
+    for n in BLS_TREE_CHECK_SIZES:
+        affs = g2_lanes.tree_points(np.random.default_rng(SEED + n), n)
+        lanes = BV._points_to_lanes(affs, dev)
+        want = G.tree_sum_plain(lanes)
+        got = G.tree_sum(lanes)
+        d = _limb_diff(got, want)
+        if d or not torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)):
+            raise AssertionError(f"bls_g2_tree_sum of {n} keys != the plain "
+                                 "tree")
+        err = max(err, d)
+    say(f"phase kernels: bls_g2_tree_sum == the plain tree on every limb of "
+        f"the root's X, Y, Z at {', '.join(map(str, BLS_TREE_CHECK_SIZES))} "
+        f"keys (a doubling and a cancel in each tree of 3 keys up) "
+        f"({time.perf_counter() - t0:.1f} s)")
     ms = _time_ms(lambda: G.g2_add_round(p, q), dev, 20)
     plain_ms = _time_ms(lambda: G.g2_add_round_plain(p, q), dev, 1, 0)
     bound, by = _g2_bound([(BLS_CHECK_LANES, n_add, n_dbl)], int32_peak)
@@ -1444,12 +1514,13 @@ def bls_check(dev, int32_peak) -> dict:
             "bound_ms_4096_lanes": bound, "bound_by_4096_lanes": by}
 
 
-def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
+def run_bls(dev, smi: str, int32_peak: float, max_sm_mhz: float,
+            signer) -> dict:
     """Phase bls, the verify half: aggregated commits of BLS_SIZES
     validators through the three verify_commit entry points, the three
-    rejections, the kernel's times and the verify rates. Returns the
-    kernel's JSON record (its launches on this main path so far) and the
-    rates. Raises on any failed check."""
+    rejections, the kernels' times and the verify rates. Returns the
+    kernels' JSON records (their launches on this main path so far) and
+    the rates. Raises on any failed check."""
     import numpy as np
     import torch
 
@@ -1468,10 +1539,12 @@ def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
     say(f"phase bls: {sum(BLS_SIZES)} BLS keys with proofs of possession "
         f"and {len(BLS_SIZES)} aggregated commits in "
         f"{time.perf_counter() - t0:.1f} s ({signer.workers} workers)")
-    main_launches = 0
+    main_launches = {"bls_g2_tree_sum": 0, "bls_g2_add_round": 0}
 
-    def drive(label, fn, want_launches, want_err=None):
-        nonlocal main_launches
+    def drive(label, fn, kernel, want_err=None):
+        """fn with the counts zeroed just before and read just after: one
+        launch of ``kernel`` (the tree, or the round for one key), no other
+        K10 launch."""
         G.reset_launches()
         calls0 = BV.stats["device_calls"]
         t = time.perf_counter()
@@ -1481,11 +1554,12 @@ def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
         except (ErrWrongSignature, ErrNotEnoughVotingPowerSigned) as e:
             err = e
         dt = time.perf_counter() - t
-        n = G.launches["bls_g2_add_round"]
-        main_launches += n
-        if n == 0 or n != want_launches:
-            raise AssertionError(f"{label}: {n} K10 launches, expected "
-                                 f"{want_launches}")
+        got = {k: G.launches[k] for k in main_launches}
+        for k in main_launches:
+            main_launches[k] += got[k]
+        if got != {k: int(k == kernel) for k in main_launches}:
+            raise AssertionError(f"{label}: K10 launches {got}, expected one "
+                                 f"of {kernel}")
         if BV.stats["device_calls"] <= calls0:
             raise AssertionError(f"{label}: no device call")
         if BV.stats["device_errors"]:
@@ -1495,31 +1569,30 @@ def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
         if want_err is not None and str(err) != str(want_err):
             raise AssertionError(f"{label}: {err!r}, expected {want_err!r}")
         say(f"phase bls: {label}: {'rejected: ' + str(err) if err else 'ok'}"
-            f" in {dt * 1e3:.2f} ms; K10 launches {n}")
+            f" in {dt * 1e3:.2f} ms; K10 launches {got}")
         return dt
 
     first_ms = {}
+    tree = "bls_g2_tree_sum"
     for n, fx in fixtures.items():
-        levels = len(_tree_launches(n))
         first_ms[str(n)] = drive(f"verify_commit-{n} (first sight of its "
-                                 f"keys)", fx.verify, levels) * 1e3
-        drive(f"verify_commit-{n}", fx.verify, levels)
-        drive(f"verify_commit_light-{n}", fx.verify_light, levels)
+                                 f"keys)", fx.verify, tree) * 1e3
+        drive(f"verify_commit-{n}", fx.verify, tree)
+        drive(f"verify_commit_light-{n}", fx.verify_light, tree)
         drive(f"verify_commit_light_trusting-{n}", fx.verify_light_trusting,
-              levels)
+              tree)
         total = fx.valset.total_voting_power()
         needed = total * 2 // 3
         wrong = fx.make_commit(range(n), msg=fx.message(fx.height + 1))
-        drive(f"wrong-aggregate-{n}", lambda: fx.verify(wrong), levels,
+        drive(f"wrong-aggregate-{n}", lambda: fx.verify(wrong), tree,
               ErrWrongSignature(-1, wrong.agg_sig))
         k = needed // 10
         sub = fx.make_commit(range(k))
-        drive(f"sub-quorum-{n} ({k} signers)", lambda: fx.verify(sub),
-              len(_tree_launches(k)),
+        drive(f"sub-quorum-{n} ({k} signers)", lambda: fx.verify(sub), tree,
               ErrNotEnoughVotingPowerSigned(10 * k, needed))
         one = fx.make_commit([0])
         drive(f"single-signer-{n} (the one-key probe)", lambda: fx.verify(one),
-              1, ErrNotEnoughVotingPowerSigned(10, needed))
+              "bls_g2_add_round", ErrNotEnoughVotingPowerSigned(10, needed))
 
     # -- times ----------------------------------------------------------------
     lanes = {}
@@ -1533,25 +1606,44 @@ def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
     one_ms = _time_ms(lambda: G.g2_add_round(p128, q128), dev, 50)
     one_plain = _time_ms(lambda: G.g2_add_round_plain(p128, q128), dev, 1, 0)
     one_bound, _ = _g2_bound(_tree_launches(BLS_SIZES[0])[:1], int32_peak)
+    # one Fq product alone: a chain of dependent products on one thread,
+    # less an empty launch (no product)
+    a1 = torch.from_numpy(G.fq_to_limbs([SEED])).to(dev)
+    b1 = torch.from_numpy(G.fq_to_limbs([SEED + 1])).to(dev)
+    launch_ms = _time_ms(lambda: G.fq_mul(a1, b1, 0), dev, 50)
+    chain_ms = _time_ms(lambda: G.fq_mul(a1, b1, FQ_CHAIN_REPS), dev, 5)
+    fq_ns = (chain_ms - launch_ms) * 1e6 / FQ_CHAIN_REPS
+    fq_cycles = fq_ns * max_sm_mhz / 1e3
+    say(f"times: bls_fq_mul alone: {fq_ns:.1f} ns a dependent product "
+        f"({fq_cycles:.0f} cycles at the max SM clock of {max_sm_mhz} MHz; "
+        f"a chain of {FQ_CHAIN_REPS} on one thread less an empty launch of "
+        f"{launch_ms:.4f} ms) ({smi})")
     trees = {}
     for n, ln in lanes.items():
-        ms = _time_ms(lambda: _tree(ln, G.g2_add_round), dev, 20)
+        ms = _time_ms(lambda: G.tree_sum(ln), dev, 20)
         want = {}
-        plain = _time_ms(lambda: want.update(
-            sum=_tree(ln, G.g2_add_round_plain)), dev, 1, 0)
-        got = _tree(ln, G.g2_add_round)
+        plain = _time_ms(lambda: want.update(sum=G.tree_sum_plain(ln)), dev,
+                         1, 0)
+        got = G.tree_sum(ln)
         if not torch.equal(got.view(torch.int32),
                            want["sum"].view(torch.int32)):
             raise AssertionError(f"the {n}-key tree != its plain version")
-        bound, by = _g2_bound(_tree_launches(n), int32_peak)
+        bound, by = _g2_tree_bound(n, int32_peak)
+        levels = len(_tree_launches(n))
+        critical = levels * G2_PRODUCT_LEVELS * fq_ns / 1e6 + launch_ms
         trees[n] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                    "bound_by": by, "launches": len(_tree_launches(n))}
-        say(f"times: bls_g2_add_round tree of {n} keys "
-            f"({trees[n]['launches']} launches): {ms:.4f} ms (plain "
-            f"{plain:.1f} ms, bound {bound:.6f} ms by {by}) ({smi})")
-    say(f"times: bls_g2_add_round one launch of {half} lanes: {one_ms:.4f} "
-        f"ms (plain {one_plain:.1f} ms, bound {one_bound:.6f} ms); library: "
-        f"none, no PyTorch call adds G2 points ({smi})")
+                    "bound_by": by, "levels": levels,
+                    "critical_path_ms": critical}
+        say(f"times: bls_g2_tree_sum of {n} keys ({ln.shape[0]} lanes, "
+            f"{levels} levels, one launch): {ms:.4f} ms (plain "
+            f"{plain:.1f} ms, bound {bound:.6f} ms by {by}; critical path "
+            f"{levels} levels x "
+            f"{G2_PRODUCT_LEVELS} products + one launch = {critical:.4f} ms, "
+            f"the tree at {ms / critical:.2f}x it) ({smi})")
+    say(f"times: bls_g2_add_round one launch of {half} lanes: "
+        f"{one_ms:.4f} ms (plain {one_plain:.1f} ms, bound {one_bound:.6f} "
+        f"ms); "
+        f"library: none, no PyTorch call adds G2 points ({smi})")
 
     # where an aggregated verify spends its time, and verifies per second
     rates, breakdown = {}, {}
@@ -1613,28 +1705,39 @@ def run_bls(dev, smi: str, int32_peak: float, signer) -> dict:
                 f"{r['verifies_per_s_warm']:.2f}/s ({smi})")
     os.environ["TMTPU_BLS_BACKEND"] = "cuda"
     t150 = trees[BLS_SIZES[0]]
-    record = {"name": "bls_g2_add_round", "route": "cuda",
-              "source": SOURCES["bls_g2_add_round"],
-              "replaces": TPU_KERNELS["bls_g2_add_round"],
-              "shape": f"a {BLS_SIZES[0]}-key tree: {t150['launches']} "
-                       f"launches of {half} down to 1 lanes",
-              "launches": main_launches, "ms": t150["ms"],
-              "plain_ms": t150["plain_ms"], "bound_ms": t150["bound_ms"],
-              "bound_by": t150["bound_by"], "library_ms": None,
-              "ms_one_launch_128_lanes": one_ms,
-              "plain_ms_one_launch_128_lanes": one_plain,
-              "bound_ms_one_launch_128_lanes": one_bound}
+    tree_record = {
+        "name": "bls_g2_tree_sum", "route": "cuda",
+        "source": SOURCES["bls_g2_tree_sum"],
+        "replaces": TPU_KERNELS["bls_g2_tree_sum"],
+        "shape": f"a {BLS_SIZES[0]}-key tree: {first.shape[0]} lanes, "
+                 f"{t150['levels']} levels, one launch",
+        "launches": main_launches["bls_g2_tree_sum"], "ms": t150["ms"],
+        "plain_ms": t150["plain_ms"], "bound_ms": t150["bound_ms"],
+        "bound_by": t150["bound_by"], "library_ms": None,
+        "critical_path_ms": t150["critical_path_ms"],
+        "fq_mul_ns": fq_ns, "fq_mul_cycles": fq_cycles,
+        "empty_launch_ms": launch_ms}
     for n in BLS_SIZES[1:]:
-        for key in ("ms", "plain_ms", "bound_ms"):
-            record[f"{key}_tree_{n}"] = trees[n][key]
-    return {"kernel": record, "rates": rates, "breakdown": breakdown}
+        for key in ("ms", "plain_ms", "bound_ms", "critical_path_ms"):
+            tree_record[f"{key}_tree_{n}"] = trees[n][key]
+    round_record = {
+        "name": "bls_g2_add_round", "route": "cuda",
+        "source": SOURCES["bls_g2_add_round"],
+        "replaces": TPU_KERNELS["bls_g2_add_round"],
+        "shape": f"one round of {half} lanes (the {BLS_SIZES[0]}-key tree's "
+                 f"first level); on the main path the one-key probe",
+        "launches": main_launches["bls_g2_add_round"], "ms": one_ms,
+        "plain_ms": one_plain, "bound_ms": one_bound,
+        "bound_by": "operations", "library_ms": None}
+    return {"kernels": [tree_record, round_record], "rates": rates,
+            "breakdown": breakdown}
 
 
 def run_bls_apply(dev, smi: str, signer) -> dict:
     """Phase bls, the apply half: a BLS_APPLY_VALIDATORS-validator bls12381
     chain with the Merkle kvstore app; BLS_APPLY_HEIGHTS heights whose
     LastCommit is the VoteSet's aggregated commit of every validator's
-    precommit. Returns the per-height records and the K10 launches."""
+    precommit. Returns the per-height records and the tree's launches."""
     import numpy as np
 
     from tendermint_tpu_torch.abci.example.kvstore import \
@@ -1704,7 +1807,7 @@ def run_bls_apply(dev, smi: str, signer) -> dict:
             t = time.perf_counter()
             state, _ = executor.apply_block(state, bid, block)
             wall = time.perf_counter() - t
-            n = G.launches["bls_g2_add_round"]
+            n = G.launches["bls_g2_tree_sum"]
             launches += n
             seg = [r for r in phases.recent_segments()
                    if r["plane"] == "exec"][-1]
@@ -1716,9 +1819,9 @@ def run_bls_apply(dev, smi: str, signer) -> dict:
                    "commit_persist_ms": seg["fetch_s"] * 1e3,
                    "launches": n, **tm.read()}
             heights.append(rec)
-            if h > 1 and (n != len(_tree_launches(BLS_APPLY_VALIDATORS))
-                          or not isinstance(block.last_commit,
-                                            AggregatedCommit)):
+            if G.launches["bls_g2_add_round"] or h > 1 and (
+                    n != 1 or not isinstance(block.last_commit,
+                                             AggregatedCommit)):
                 raise AssertionError(f"height {h}: {n} K10 launches for a "
                                      f"{type(block.last_commit).__name__}")
             if BV.stats["device_errors"] != errors0:
@@ -1754,7 +1857,8 @@ def run_bls_apply(dev, smi: str, signer) -> dict:
         raise AssertionError(f"bls chain: app hash {state.app_hash.hex()} "
                              f"!= the recursive spec {spec.hex()}")
     say(f"phase bls apply: app hash {spec.hex()} == the recursive hashlib "
-        f"spec over {len(app.state)} keys; K10 launches {launches}")
+        f"spec over {len(app.state)} keys; bls_g2_tree_sum launches "
+        f"{launches}")
     return {"heights": heights, "launches": launches}
 
 
@@ -1807,19 +1911,20 @@ def main() -> int:
         apply = run_apply(dev, smi, signer)
         t_bls = time.perf_counter()
         bls_kernel = bls_check(dev, int32_peak)
-        bls = run_bls(dev, smi, int32_peak, signer)
+        bls = run_bls(dev, smi, int32_peak, max_sm_mhz, signer)
         bls_apply = run_bls_apply(dev, smi, signer)
         bls_s = time.perf_counter() - t_bls
     result["kernels"] += sharded["kernels"]
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
-    record = bls["kernel"]
-    record["launches"] += bls_apply["launches"]
-    record["max_abs_err"] = bls_kernel.pop("err")
-    record.update(bls_kernel)
-    result["kernels"].append(record)
-    say(f"phase bls: {bls_s:.1f} s in all; K10 "
-        f"launches on the main path {record['launches']}")
+    tree, rnd = bls["kernels"]
+    tree["launches"] += bls_apply["launches"]
+    tree["max_abs_err"] = rnd["max_abs_err"] = bls_kernel.pop("err")
+    rnd.update(bls_kernel)
+    result["kernels"] += [tree, rnd]
+    say(f"phase bls: {bls_s:.1f} s in all; K10 launches on the main path: "
+        f"bls_g2_tree_sum {tree['launches']}, bls_g2_add_round "
+        f"{rnd['launches']}")
     say(f"card and power limit: {smi}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"verify_commit_sigs_per_s":

@@ -3,12 +3,13 @@ fast-aggregate-verify that the consensus plane calls.
 
 The one data-parallel step of an aggregated-commit verify is the
 aggregate-pubkey sum (many G2 points, one result). Here it is a
-pad-to-power-of-two Jacobian tree whose pairwise round is one launch of
-the CUDA kernel ``bls_g2_add_round`` (``crypto/bls12381_cuda``, K10 of the
-JAX package's ``crypto/bls12381/vec.py``): n signers take log2 of the
-padded width in launches, 8 at 150 and 10 at 1,000. Points cross to the
-card as Montgomery limbs (``bls12381_cuda/g2.py``). On a CPU default
-device the kernel's plain PyTorch version runs the rounds.
+pad-to-power-of-two Jacobian tree with the JAX tree's order (at every
+level lane i adds lane i + half), summed in one launch of the CUDA kernel
+``bls_g2_tree_sum`` (``crypto/bls12381_cuda``; K10 of the JAX package's
+``crypto/bls12381/vec.py`` runs one ``_g2_add_round`` a level). A single
+key is one round, ``bls_g2_add_round``, the key plus infinity. Points
+cross to the card as Montgomery limbs (``bls12381_cuda/g2.py``). On a CPU
+default device the kernel's plain PyTorch version runs the rounds.
 
 Routing. ``TMTPU_BLS_BACKEND`` = ``cuda`` (the default: the port's entry
 points run on the card) | ``scalar`` (the pure-Python spec,
@@ -65,15 +66,17 @@ def _points_to_lanes(affs, device) -> torch.Tensor:
 
 def aggregate_pubkeys_vec(pks, device=None,
                           rec: Optional[_phases.Segment] = None):
-    """Sum the (decompressed, subgroup-checked) pubkeys with one kernel
-    launch per tree level. Returns the affine aggregate, or None on any
-    invalid key or an infinite sum. ``rec`` gets its pack stamp after the
-    host conversion, its dispatch stamp after the launches and its fetch
-    stamp when the sum is back on the host.
+    """Sum the (decompressed, subgroup-checked) pubkeys with one launch of
+    the tree kernel (of the round kernel for one key). Returns the affine
+    aggregate, or None on any invalid key or an infinite sum. ``rec`` gets
+    its pack stamp after the host conversion, its dispatch stamp after the
+    launch and its fetch stamp when the sum is back on the host.
 
-    A single key is summed with the point at infinity in one launch and
+    A single key is summed with the point at infinity by one round and
     must come back unchanged, so a one-signer commit is checked on the
-    card too; a key that does not come back raises RuntimeError."""
+    card too; a key that does not come back raises RuntimeError. More than
+    ``g2.TREE_MAX_LANES`` (2^14) keys raise ValueError: a commit has at
+    most MAX_VOTES_COUNT (10,000) signers."""
     affs = []
     for pk in pks:
         q = decompress_pubkey(pk)
@@ -86,9 +89,10 @@ def aggregate_pubkeys_vec(pks, device=None,
     pt = _points_to_lanes(affs, dev)
     if rec is not None:
         rec.pack_done()
-    while pt.shape[0] > 1:
-        half = pt.shape[0] // 2
-        pt = _g2.g2_add_round(pt[:half], pt[half:])
+    if len(affs) == 1:
+        pt = _g2.g2_add_round(pt[:1], pt[1:])  # the key + infinity
+    else:
+        pt = _g2.tree_sum(pt)
     if rec is not None:
         rec.dispatched()
     X, Y, Z = _g2.from_lanes(pt)[0]

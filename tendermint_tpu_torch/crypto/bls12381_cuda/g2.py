@@ -33,8 +33,13 @@ R_MONT = pow(2, R_BITS, P)
 R_INV = pow(R_MONT, -1, P)
 LANE_SHAPE = (3, 2, NLIMBS)
 
-#: launches of the kernel by its wrapper (plain-version calls excluded)
-launches = {"bls_g2_add_round": 0}
+#: lanes one tree sums at most (csrc/g2_add.cu): the padded width of a
+#: commit's most signers (types/vote.py MAX_VOTES_COUNT, 10,000)
+TREE_MAX_LANES = 1 << 14
+_TREE_WS_HEAD = 4
+
+#: launches of the kernels by their wrappers (plain-version calls excluded)
+launches = {"bls_g2_add_round": 0, "bls_g2_tree_sum": 0, "bls_fq_mul": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 Fq2 = Tuple[int, int]
@@ -43,7 +48,13 @@ Jacobian = Tuple[Fq2, Fq2, Fq2]
 
 def reset_launches() -> None:
     with _LAUNCH_LOCK:
-        launches["bls_g2_add_round"] = 0
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        launches[name] += 1
 
 
 def kernel_device() -> torch.device:
@@ -68,6 +79,10 @@ def _check_lanes(name: str, x) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def g2_add_round(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """(n, 3, 2, 12) uint32 lanes P and Q -> P + Q, lane by lane."""
     _check_lanes("p", p)
@@ -80,15 +95,90 @@ def g2_add_round(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return g2_add_round_plain(p, q)
     if dev.type != "cuda":
         raise ValueError(f"g2_add_round: unsupported device {dev}")
-    out = torch.empty_like(p)
     lib = build.PACKAGE.library("g2_add")
-    rc = lib.tm_bls_g2_add_round(p.data_ptr(), q.data_ptr(), out.data_ptr(),
-                                 p.shape[0],
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        out = torch.empty_like(p)
+        rc = lib.tm_bls_g2_add_round(p.data_ptr(), q.data_ptr(),
+                                     out.data_ptr(), p.shape[0],
+                                     _stream(dev))
     if rc != 0:
         raise RuntimeError(f"bls_g2_add_round: CUDA error {rc} at launch")
-    with _LAUNCH_LOCK:
-        launches["bls_g2_add_round"] += 1
+    _count("bls_g2_add_round")
+    return out
+
+
+# (device index, stream) -> the tree's finished-block counter and partial
+# lanes: one launch at a time on a stream, so launches there share them
+_TREE_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tree_workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    ws = _TREE_WORKSPACE.get(key)
+    if ws is None:
+        with _LAUNCH_LOCK:
+            ws = _TREE_WORKSPACE.get(key)
+            if ws is None:
+                blocks = int(TREE_MAX_LANES ** 0.5)
+                ws = torch.zeros(_TREE_WS_HEAD + blocks * 6 * NLIMBS,
+                                 dtype=torch.int32, device=dev)
+                _TREE_WORKSPACE[key] = ws
+    return ws
+
+
+def tree_sum(lanes: torch.Tensor) -> torch.Tensor:
+    """(2^k, 3, 2, 12) uint32 lanes, at most TREE_MAX_LANES -> their
+    (1, 3, 2, 12) sum in one launch, with the JAX tree's order: at every
+    level lane i adds lane i + half."""
+    _check_lanes("lanes", lanes)
+    n = lanes.shape[0]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"tree_sum: {n} lanes is not a power of 2")
+    if n > TREE_MAX_LANES:
+        raise ValueError(f"tree_sum: {n} lanes, over {TREE_MAX_LANES}")
+    dev = lanes.device
+    if dev.type == "cpu":
+        return tree_sum_plain(lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"tree_sum: unsupported device {dev}")
+    lib = build.PACKAGE.library("g2_add")
+    with torch.cuda.device(dev):
+        out = torch.empty((1, *LANE_SHAPE), dtype=torch.uint32, device=dev)
+        stream = _stream(dev)
+        ws = _tree_workspace(dev, stream)
+        rc = lib.tm_bls_g2_tree_sum(lanes.data_ptr(), out.data_ptr(),
+                                    ws.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"bls_g2_tree_sum: CUDA error {rc} at launch")
+    _count("bls_g2_tree_sum")
+    return out
+
+
+def fq_mul(a: torch.Tensor, b: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """(n, 12) uint32 Montgomery limbs a, b -> a * b^reps * 2^(-384 reps)
+    mod p: the kernels' product, repeated reps times on its own result, one
+    thread an element (``bls_fq_mul``)."""
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.uint32 or x.dim() != 2 or x.shape[1] != NLIMBS \
+                or not x.is_contiguous():
+            raise TypeError(f"{name}: expected a contiguous (n, {NLIMBS}) "
+                            f"uint32 tensor")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("a and b differ in shape or device")
+    dev = a.device
+    if dev.type == "cpu":
+        out = a
+        for _ in range(reps):
+            out = fq_mul_plain(out, b)
+        return out
+    lib = build.PACKAGE.library("g2_add")
+    with torch.cuda.device(dev):
+        out = torch.empty_like(a)
+        rc = lib.tm_bls_fq_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               a.shape[0], reps, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"bls_fq_mul: CUDA error {rc} at launch")
+    _count("bls_fq_mul")
     return out
 
 
@@ -300,6 +390,15 @@ def g2_add_round_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """The kernel's function on torch tensors: (n, 3, 2, 12) uint32 lanes
     P, Q -> P + Q, on the tensors' device."""
     return _pack(_g2_add(_unpack(p), _unpack(q)))
+
+
+def tree_sum_plain(lanes: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`tree_sum`: the JAX tree's rounds of
+    :func:`g2_add_round_plain`, on the tensor's device."""
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = g2_add_round_plain(lanes[:half], lanes[half:])
+    return lanes
 
 
 def fq_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

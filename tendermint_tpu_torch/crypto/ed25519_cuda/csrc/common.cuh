@@ -1,13 +1,14 @@
 // Shared macros for the Ed25519 verify kernels.
 //
-// Field operations are forced inline; the group operations, exponent
-// chains, hash compression and the verify itself are __noinline__, so each
+// Field operations are forced inline; the exponent chains, hash
+// compression, decompression, encoding and the verify cores are
+// __noinline__, so each
 // is compiled once instead of once per call site (ptxas time grows fast
 // with straight-line code of this size).
 //
 // The device functions in field.cuh, scalar.cuh, sha512.cuh, curve.cuh and
-// verify.cuh are plain C++ as well: without __CUDACC__ they compile as host
-// inline functions, so their arithmetic can be checked by a host compiler
+// the verify cores are plain C++ as well: without __CUDACC__ they compile
+// as host inline functions, so their arithmetic can be checked by a host compiler
 // against Python integers before it ever reaches the card.
 #pragma once
 

@@ -1,26 +1,21 @@
-// edwards25519 group operations, one point per thread.
-//
-// The additions, the doubling and the two scalar multiplies serve the
-// one-thread verify that K8 keeps (verify.cuh); K5-K7 run them on four
-// lanes a point (lanes.cuh). Decompression and the encoding serve both.
+// edwards25519 points, one point per thread: the constants, decompression
+// and the encoding, the serial parts of a verify. The additions, the
+// doubling and the scalar multiplies run on four lanes a point (lanes.cuh,
+// verify4.cuh).
 //
 // Counterpart of K4 (tendermint_tpu/crypto/ed25519_jax/curve.py: decompress,
-// encode, add/dbl/add_niels, scalar_mul_windowed, scalar_mul_base). Same
-// formulas: extended coordinates (X, Y, Z, T) with the complete a = -1
-// addition law, so no input pair needs a branch. Where the TPU selected
-// table entries with a one-hot product over all 16 entries, a thread here
-// indexes its table directly: verification handles public data only.
+// encode; its add/dbl/add_niels and scalar multiplies are lanes.cuh's and
+// verify4.cuh's). Extended coordinates (X, Y, Z, T) with the complete
+// a = -1 addition law, so no input pair needs a branch. Where the TPU
+// selected table entries with a one-hot product over all 16 entries, a
+// group here indexes its table directly: verification handles public data
+// only.
 #pragma once
 
 #include "field.cuh"
 
 struct ge {
   fe X, Y, Z, T;
-};
-
-// affine niels form of a base-table entry: (y + x, y - x, 2 d x y)
-struct ge_niels {
-  fe ypx, ymx, t2d;
 };
 
 TM_CONST uint32_t TM_FE_D[10] = {56195235, 13857412, 51736253, 6949390,
@@ -43,75 +38,6 @@ TM_DEV void ge_identity(ge &p) {
   fe_one(p.Y);
   fe_one(p.Z);
   fe_zero(p.T);
-}
-
-// complete addition (the 2d variant), 9 multiplies
-TM_NOINLINE void ge_add(ge &r, const ge &p, const ge &q) {
-  fe a, b, c, d, e, f, g, h, t0, t1, d2;
-  fe_sub(t0, p.Y, p.X);
-  fe_sub(t1, q.Y, q.X);
-  fe_mul(a, t0, t1);
-  fe_add(t0, p.Y, p.X);
-  fe_add(t1, q.Y, q.X);
-  fe_mul(b, t0, t1);
-  fe_load_const(d2, TM_FE_D2);
-  fe_mul(t0, p.T, q.T);
-  fe_mul(c, t0, d2);
-  fe_mul(d, p.Z, q.Z);
-  fe_add(d, d, d);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  fe_mul(r.T, e, h);
-}
-
-// doubling, 4 multiplies + 4 squarings (T is never read by a doubling)
-TM_NOINLINE void ge_dbl(ge &r, const ge &p) {
-  fe a, b, c, e, f, g, h, t0;
-  fe_sq(a, p.X);
-  fe_sq(b, p.Y);
-  fe_sq(c, p.Z);
-  fe_add(c, c, c);
-  fe_add(h, a, b);
-  fe_add(t0, p.X, p.Y);
-  fe_sq(t0, t0);
-  fe_sub(e, h, t0);
-  fe_sub(g, a, b);
-  fe_add(f, c, g);
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  fe_mul(r.T, e, h);
-}
-
-// mixed addition with an affine niels point, 7 multiplies
-TM_NOINLINE void ge_add_niels(ge &r, const ge &p, const ge_niels &n) {
-  fe a, b, c, d, e, f, g, h, t0;
-  fe_sub(t0, p.Y, p.X);
-  fe_mul(a, t0, n.ymx);
-  fe_add(t0, p.Y, p.X);
-  fe_mul(b, t0, n.ypx);
-  fe_mul(c, p.T, n.t2d);
-  fe_add(d, p.Z, p.Z);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  fe_mul(r.T, e, h);
-}
-
-TM_DEV void ge_neg(ge &r, const ge &p) {
-  fe_neg(r.X, p.X);
-  fe_copy(r.Y, p.Y);
-  fe_copy(r.Z, p.Z);
-  fe_neg(r.T, p.T);
 }
 
 // RFC 8032 5.1.3 decoding of a 32-byte point. Returns false for y >= p, a
@@ -174,45 +100,4 @@ TM_NOINLINE void ge_encode(uint8_t s[32], const ge &p) {
   fe_mul(y, p.Y, zi);
   fe_tobytes(s, y);
   s[31] |= (uint8_t)(fe_parity(x) << 7);
-}
-
-// [k]P with k = sum digits[i] 16^i: a table of [0..15]P (15 additions),
-// then 64 windows of 4 doublings and one table addition, most significant
-// window first. The table is 2.5 KB per thread and lives in local memory.
-TM_NOINLINE void ge_scalar_mul_windowed(ge &r, const ge &p, const uint8_t digits[64]) {
-  ge table[16];
-  ge_identity(table[0]);
-  table[1] = p;
-  for (int k = 2; k < 16; k++) ge_add(table[k], table[k - 1], p);
-  ge acc;
-  ge_identity(acc);
-  for (int i = 63; i >= 0; i--) {
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_dbl(acc, acc);
-    ge_add(acc, acc, table[digits[i]]);
-  }
-  r = acc;
-}
-
-// [s]B with s = sum digits[i] 16^i from the fixed-base table
-// (64 windows x 16 entries x 3 coordinates x 10 limbs, u32) in global
-// memory: 64 mixed additions, no doublings.
-TM_NOINLINE void ge_scalar_mul_base(ge &r, const uint8_t digits[64],
-                               const uint32_t *__restrict__ table) {
-  ge acc;
-  ge_identity(acc);
-  for (int i = 0; i < 64; i++) {
-    const uint32_t *e = table + ((i * 16 + digits[i]) * 3) * 10;
-    ge_niels n;
-    TM_UNROLL
-    for (int l = 0; l < 10; l++) {
-      n.ypx.v[l] = TM_LDG(e + l);
-      n.ymx.v[l] = TM_LDG(e + 10 + l);
-      n.t2d.v[l] = TM_LDG(e + 20 + l);
-    }
-    ge_add_niels(acc, acc, n);
-  }
-  r = acc;
 }

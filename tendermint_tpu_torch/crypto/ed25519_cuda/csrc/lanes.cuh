@@ -5,11 +5,11 @@
 // Edwards Curves Revisited", ASIACRYPT 2008, section 4), as in the 4-lane
 // vector backend of curve25519-dalek: the same extended coordinates, the
 // same complete a = -1 law with the constant 2d, and the same products as
-// curve.cuh's one-thread ge_add / ge_add_niels / ge_dbl, so every result
-// is the same projective point. Each operation is two rounds of one field
-// multiply (or squaring) a lane, with field elements exchanged inside the
-// group between them; the one-thread versions run 7 to 9 multiplies in
-// series.
+// the one-thread extended-coordinate addition, mixed addition and doubling
+// (ref10's ge_add, ge_madd, ge_p2_dbl), so every result is the same
+// projective point. Each operation is two rounds of one field multiply (or
+// squaring) a lane, with field elements exchanged inside the group between
+// them; one thread would run 7 to 9 multiplies in series.
 //
 // A table entry for an addition is in cached form, lane c holding
 // (Y - X, Y + X, Z, 2d T)[c]; a fixed-base (niels) entry is (y - x, y + x,
@@ -20,7 +20,8 @@
 // then E = B - A, F = D - C, G = D + C, H = B + A, and round 2:
 //   X3 = E F, Y3 = G H, Z3 = F G, T3 = E H.
 // A doubling squares X, Y, Z and X + Y in round 1 (Z^2 doubled), forms
-// curve.cuh's e, f, g, h from them, and round 2 is the same four products.
+// the doubling's e, f, g, h from them, and round 2 is the same four
+// products.
 //
 // Every exchange is reached by all 32 lanes of the warp: the functions
 // have no branch on data, and a group with no item runs a dummy one.
@@ -154,7 +155,7 @@ TM_DEV void ge4_dbl_base(fe &u, int c, const fe &own, const fe &x,
 // t1, t2 from these lanes; then
 //   lane 0: e = a + b - S, f = a - b + c2    lane 1: g = a - b, h = a + b
 //   lane 2: f = a - b + c2, g = a - b        lane 3: e = a + b - S, h = a + b
-// (curve.cuh's ge_dbl: h = a + b, e = h - S, g = a - b, f = c2 + g).
+// (the one-thread doubling's h = a + b, e = h - S, g = a - b, f = c2 + g).
 TM_DEV int ge4_dbl_src(int c, int k) {
   return k == 0 ? pick4(c, 3, 1, 2, 3) : pick4(c, 2, 1, 2, 3);
 }

@@ -4,8 +4,7 @@
 //
 // Counterpart of K5's block reads and of K7's preimage assembly
 // (tendermint_tpu/crypto/ed25519_jax/verify.py _verify_kernel,
-// _assemble_blocks). Shared by the four-lane verify (verify4.cuh) and the
-// one-thread verify that K8 keeps (verify.cuh).
+// _assemble_blocks). Used by the four-lane verify (verify4.cuh).
 #pragma once
 
 #include "sha512.cuh"

@@ -4,8 +4,7 @@
 // Counterpart of tendermint_tpu/crypto/ed25519_jax/verify.py _verify_kernel
 // (K5) and _verify_sparse_stream_kernel (K7). The host keeps the length and
 // s < L checks and ANDs its mask with this verdict, exactly as the JAX
-// package does. The result equals the one-thread core's (verify.cuh) on
-// every input: the same formulas, the same masking, the same compare.
+// package does. K8 (tally.cu) runs the same item.
 //
 // Work split:
 // * Serial parts, the same on all four lanes of the group: the SHA-512 of
@@ -18,8 +17,8 @@
 // * [h](-A) and [s]B on lanes.cuh's parallel formulas: a table of
 //   [0..15](-A) in cached form (14 additions), 64 windows of 4 doublings
 //   and one addition, 64 mixed additions with the fixed-base table, one
-//   addition of the two: about 800 rounds of one multiply a lane where the
-//   one-thread core runs about 3,000 multiplies in series.
+//   addition of the two: about 800 rounds of one multiply a lane where one
+//   thread would run about 3,000 multiplies in series.
 //
 // Per-thread scratch lives in shared memory, in the thread's own column of
 // a [TM_V4_ROWS][stride] array (stride = the block's threads): the window
@@ -66,7 +65,7 @@ TM_DEV uint32_t v4_le_word(const uint8_t *b) {
 // (and so the inversion in the encoding) does not hold. Its verdict is
 // false either way.
 //
-// Out of line, as the one-thread core: both kernels call one copy.
+// Out of line: the kernels call one copy.
 //
 // The digest is reduced before A is decompressed, so the caller's digest
 // is read before the core's own locals are written. With A decompressed

@@ -12,10 +12,9 @@ of work is the same:
 * device: SHA-512, the reduction mod L, decompression of A, [s]B +
   [h](-A), the encoding and the compare with R. ``csrc/verify.cu`` runs a
   group of four lanes per signature (``ed25519_verify_dense`` for K5/K6,
-  ``ed25519_verify_sparse`` for K7); ``csrc/tally.cu`` one thread per
-  signature (``ed25519_verify_tally`` for K8, the dense verify plus the
-  masked sum of each accepted signature's 8-bit power limbs, for
-  sharded.py).
+  ``ed25519_verify_sparse`` for K7); ``csrc/tally.cu`` the same for
+  ``ed25519_verify_tally`` (K8, the dense verify plus the masked sum of
+  each accepted signature's 8-bit power limbs, for sharded.py).
 
 The verdict is ``kernel & ok``, where ``ok`` is the host mask, exactly as
 in the JAX package. Arrays are item-major here (one row per signature):

@@ -1,5 +1,6 @@
 """Seeded lane pairs for holding the G2-add round (``bls_g2_add_round``)
-against its plain version and the curve spec.
+against its plain version and the curve spec, and seeded keys for holding
+the tree (``bls_g2_tree_sum``) against the plain tree.
 
 The lanes cycle through every class the round distinguishes: two
 different points, the same with P at another Jacobian Z, P == Q (the
@@ -80,3 +81,30 @@ def spec_sum(p, q):
     else:
         s = curve.g2_add(p, q)
     return None if s[2] == (0, 0) else curve.g2_to_affine(s)
+
+
+def tree_points(rng: np.random.Generator, n: int) -> List:
+    """``n`` affine curve points (keys of an aggregate) from a chain of
+    additions, with two that the tree's order sends through the special
+    lanes: point 0 again at width / 2, which meets its twin at the first
+    level (a doubling; width is n padded to a power of 2, at least 2); and
+    the negation of point 1 where it meets point 1 (a cancel), at the first
+    level (width / 2 + 1) when n reaches it, else at the second
+    (width / 4 + 1, whose first-level partners are padding)."""
+    g = (curve.G2_GEN[0], curve.G2_GEN[1], (1, 0))
+    pt = curve.g2_mul(g, int(rng.integers(2, 2**62)))
+    step = curve.g2_mul(g, int(rng.integers(2, 2**62)))
+    affs = []
+    for _ in range(n):
+        affs.append(curve.g2_to_affine(pt))
+        pt = curve.g2_add(pt, step)
+    width = 2
+    while width < n:
+        width *= 2
+    if width // 2 < n:
+        affs[width // 2] = affs[0]
+    for i in (width // 2 + 1, width // 4 + 1):
+        if 1 < i < n and i != width // 2:
+            affs[i] = curve.g2_to_affine(curve.g2_neg((*affs[1], (1, 0))))
+            break
+    return affs

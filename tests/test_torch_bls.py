@@ -70,6 +70,7 @@ from tendermint_tpu_torch.state import store as tstore
 from tendermint_tpu_torch.store import block_store as tbs
 from tendermint_tpu_torch import types as ttypes
 from tendermint_tpu_torch.types import params as tparams
+from tendermint_tpu_torch.types import vote as tvote
 from tendermint_tpu_torch.types.block import AggregatedCommit as TAggCommit
 from tendermint_tpu_torch.types.validator_set import \
     verify_commit_light_trusting_batched as ttrusting_batched
@@ -186,6 +187,50 @@ def test_aggregate_pubkeys_matches_jax(n):
     pks = [k.pub_key().bytes() for k in _keys(b"agg", n)]
     got = tvec.aggregate_pubkeys_vec(pks)
     assert got is not None and got == jbls.aggregate_pubkeys(pks)
+
+
+def _jax_tree_root(affs):
+    """The JAX package's aggregate tree (aggregate_pubkeys_vec's rounds of
+    _g2_add_round on the numpy backend) over affine points: the root's
+    Jacobian X, Y, Z as plain ints."""
+    pt = jvec._points_to_lanes(np, jvec.CFG_NP, affs)
+    lanes = int(np.asarray(pt[0][0]).shape[1])
+    while lanes > 1:
+        half = lanes // 2
+        left = tuple(tuple(c[:, :half] for c in comp) for comp in pt)
+        right = tuple(tuple(c[:, half:] for c in comp) for comp in pt)
+        pt = jvec._g2_add_round("numpy", left, right, False)
+        lanes = half
+    return tuple(tuple(_jax_ints(c, jvec.CFG_NP)[0] for c in comp)
+                 for comp in pt)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 150, 257])
+def test_tree_sum_plain_matches_jax_tree(n):
+    """The tree's order is the JAX tree's: the root's Jacobian coordinates
+    are equal, not only its affine value, with a doubling and a cancel
+    inside the tree (g2_lanes.tree_points); and the aggregate through both
+    packages' aggregate_pubkeys_vec is the same point."""
+    affs = g2_lanes.tree_points(np.random.default_rng(SEED + 3), n)
+    root = G.from_lanes(G.tree_sum_plain(
+        tvec._points_to_lanes(affs, torch.device("cpu"))))[0]
+    assert root == _jax_tree_root(affs)
+    pks = [tcurve.g2_compress(a) for a in affs]
+    want = jvec.aggregate_pubkeys_vec(pks, backend="numpy")
+    assert want is not None
+    assert tvec.aggregate_pubkeys_vec(pks) == want == tcurve.g2_to_affine(root)
+
+
+def test_tree_sum_refuses_lanes_past_a_commit_and_ragged_widths():
+    """The tree takes a power of 2 of lanes up to 2^14, the padded width of
+    a commit's most signers (MAX_VOTES_COUNT, 10,000), on the CPU as on
+    the card."""
+    assert G.TREE_MAX_LANES == 1 << 14
+    assert G.TREE_MAX_LANES >= tvote.MAX_VOTES_COUNT
+    for n in (3, 2 * G.TREE_MAX_LANES):
+        lanes = torch.zeros((n, *G.LANE_SHAPE), dtype=torch.uint32)
+        with pytest.raises(ValueError, match="tree_sum"):
+            G.tree_sum(lanes)
 
 
 def test_aggregate_pubkeys_invalid_and_infinite_give_none():
@@ -624,7 +669,7 @@ def test_fault_site_reaches_the_caller(signed):
 
 
 class _FaultAtFetch(torch.Tensor):
-    """A round's output whose device fault surfaces when it is fetched, as
+    """A tree's output whose device fault surfaces when it is fetched, as
     an asynchronous CUDA error does."""
 
     def cpu(self, *args, **kwargs):
@@ -632,16 +677,24 @@ class _FaultAtFetch(torch.Tensor):
                            "encountered")
 
 
-def _broken_round(where):
-    plain = G.g2_add_round
+def _broken_kernels(monkeypatch, where):
+    """The tree and the round (the one-key probe's launch), faulting at
+    their launch, at the fetch of their sum, or returning infinity."""
+    tree, round_ = G.tree_sum, G.g2_add_round
 
-    def add(p, q):
-        if where == "launch":
-            raise RuntimeError("bls_g2_add_round: CUDA error 700 at launch")
-        if where == "fetch":
-            return plain(p, q).as_subclass(_FaultAtFetch)
-        return plain(q, q)  # the probe's key + infinity comes back infinite
-    return add
+    def broken(plain):
+        def run(*lanes):
+            if where == "launch":
+                raise RuntimeError("bls_g2_tree_sum: CUDA error 700 at "
+                                   "launch")
+            if where == "fetch":
+                return plain(*lanes).as_subclass(_FaultAtFetch)
+            inf = torch.zeros_like(lanes[-1][-1:])
+            return plain(*(inf.expand(x.shape).contiguous() for x in lanes))
+        return run
+
+    monkeypatch.setattr(G, "tree_sum", broken(tree))
+    monkeypatch.setattr(G, "g2_add_round", broken(round_))
 
 
 @pytest.mark.parametrize("where", ["launch", "fetch", "probe"])
@@ -649,7 +702,7 @@ def test_running_kernel_fault_reaches_the_caller(monkeypatch, signed, where):
     """A fault of the running kernel (at its launch, surfacing at the fetch
     of the sum, or a one-key probe that does not return its key) reaches
     the caller, with no scalar re-verify and no breaker strike."""
-    monkeypatch.setattr(G, "g2_add_round", _broken_round(where))
+    _broken_kernels(monkeypatch, where)
     pks, msg, agg = signed
     if where == "probe":
         pks, agg = pks[:1], _keys(b"rte", 1)[0].sign(msg)

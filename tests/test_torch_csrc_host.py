@@ -13,8 +13,9 @@ harness over them with ``g++ -O1`` into a temporary directory and holds:
   threads, and the harness's exchange (``tm_host_xchg``) hands each lane
   the field element of the lane it names, between two barriers: the same
   code as on the card, where the exchange is ``__shfl_sync``;
-* the four-lane verify (``verify4.cuh``, the core of K5-K7) and the
-  one-thread verify that K8 keeps (``verify.cuh``) against
+* the four-lane verify (``verify4.cuh``, the core of K5-K8) and K8's loop
+  over it (``tally.cu``: 16 signatures a block, an item past n verifying
+  the last again and storing nothing) with its tally against
   ``crypto/ed25519.py::verify`` on valid, corrupted and every adversarial
   class of ``chip_smoke.py``, in the dense and the sparse wire formats.
 
@@ -36,6 +37,7 @@ from tendermint_tpu_torch import device
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto.ed25519_cuda import curve as TC
 from tendermint_tpu_torch.crypto.ed25519_cuda import field as F
+from tendermint_tpu_torch.crypto.ed25519_cuda import sharded as TS
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
 
 CSRC = (Path(__file__).resolve().parent.parent / "tendermint_tpu_torch"
@@ -46,7 +48,6 @@ HARNESS = r"""
 #include <cstring>
 #include <thread>
 
-#include "verify.cuh"
 #include "verify4.cuh"
 
 struct Group {
@@ -166,13 +167,28 @@ void h_verify4_sparse(const uint8_t *templates, int mlen_max,
   });
 }
 
-// K8's one-thread verify over the same dense batch
-void h_verify1_dense(const uint32_t *blocks, const int32_t *nblk,
-                     const uint32_t *s_words, const uint32_t *table,
-                     uint8_t *out, int n, int nblk_max) {
-  for (int i = 0; i < n; i++)
-    out[i] = verify_dense_item(blocks + (size_t)i * nblk_max * 32, nblk[i],
-                               s_words + 8 * i, table);
+// K8 over the same dense batch, as tally.cu's kernel runs it: 16 items a
+// block, a group of four lanes an item; an item past n verifies the last
+// again, stores nothing and adds nothing; lane 0 adds the limbs of its
+// accepted item to the tally
+void h_tally_dense(const uint32_t *blocks, const int32_t *nblk,
+                   const uint32_t *s_words, const uint32_t *table,
+                   const int32_t *limbs, uint8_t *out, int64_t *sums, int n,
+                   int nblk_max) {
+  static uint32_t scratch[TM_V4_ROWS * 4];
+  for (int j = 0; j < 8; j++) sums[j] = 0;
+  run_group([&](int c) {
+    for (int item = 0; item < (n + 15) / 16 * 16; item++) {
+      const int i = item < n ? item : n - 1;
+      const bool ok = verify4_dense_item(
+          blocks + (size_t)i * nblk_max * 32, nblk[i], s_words + 8 * i,
+          table, scratch + c, 4);
+      if (c == 0 && item < n) {
+        out[item] = ok;
+        for (int j = 0; j < 8; j++) sums[j] += ok ? limbs[8 * i + j] : 0;
+      }
+    }
+  });
 }
 }
 """
@@ -206,7 +222,7 @@ def _build(out: Path):
     h.h_fe_sq.argtypes = [vp, vp, i]
     h.h_ge4.argtypes = [i, vp, vp, vp, i]
     h.h_verify4_dense.argtypes = [vp] * 5 + [i, i]
-    h.h_verify1_dense.argtypes = [vp] * 5 + [i, i]
+    h.h_tally_dense.argtypes = [vp] * 7 + [i, i]
     h.h_verify4_sparse.argtypes = ([vp, i, vp, i] + [vp] * 5
                                    + [i, vp, vp, i])
     return h
@@ -355,31 +371,41 @@ def _cases():
 
 
 def _dense_verdicts(lib, cases):
-    """(four-lane verdicts, one-thread verdicts, host mask) of ``cases``."""
+    """(four-lane verdicts, K8's verdicts, host mask) of ``cases``; K8's
+    tally over random powers (zeroed where the host mask is false, as
+    sharded.py does) is checked against the spec's verdicts here."""
     bw, nblk, sw, ok = TV.prepare_batch(*(list(x) for x in zip(*cases)))
-    assert sorted(set(nblk.tolist())) == [1, 2, 3]
+    if len(cases) > 8:
+        assert sorted(set(nblk.tolist())) == [1, 2, 3]
     args = [np.ascontiguousarray(x) for x in
             (bw, nblk.astype(np.int32), sw, TC.base_table_np())]
     n, nb = bw.shape[0], bw.shape[1]
-    four, one = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    powers = np.random.default_rng(n).integers(1, 2**62, n) * ok
+    limbs = np.ascontiguousarray(TS._power_limbs(powers))
+    four, k8 = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    sums = np.zeros(8, np.int64)
     lib.h_verify4_dense(*(_ptr(x) for x in args), _ptr(four), n, nb)
-    lib.h_verify1_dense(*(_ptr(x) for x in args), _ptr(one), n, nb)
-    return four.astype(bool), one.astype(bool), ok
+    lib.h_tally_dense(*(_ptr(x) for x in args), _ptr(limbs), _ptr(k8),
+                       _ptr(sums), n, nb)
+    want = [ed.verify(*c) for c in cases]
+    assert sum(int(s) << (8 * j) for j, s in enumerate(sums)) == \
+        sum(int(p) for p, w in zip(powers, want) if w)
+    return four.astype(bool), k8.astype(bool), ok
 
 
 def test_four_lane_verify_matches_spec_dense(lib):
     cases = _cases()
     want = [ed.verify(*c) for c in cases]
     assert any(want) and not all(want)
-    four, one, ok = _dense_verdicts(lib, cases)
-    assert four.tolist() == one.tolist()
+    four, k8, ok = _dense_verdicts(lib, cases)
+    assert four.tolist() == k8.tolist()
     assert (four & ok).tolist() == want
 
 
 def test_four_lane_verify_on_random_keys(lib):
     """Public keys of 32 random bytes: about half fail decompression and
     are masked to the identity, the rest are points that did not sign;
-    both cores and the spec reject every one."""
+    the four-lane verify, K8's loop over it and the spec reject every one."""
     rng = np.random.default_rng(6)
     priv, pub = ed.keygen(b"\x03" * 32)
     msg = b"random keys"
@@ -390,9 +416,22 @@ def test_four_lane_verify_on_random_keys(lib):
     cases += _cases()[3:4] + _cases()[6:7]   # two- and three-block preimages
     want = [ed.verify(*c) for c in cases]
     assert want[0] and not any(want[1:24])
-    four, one, ok = _dense_verdicts(lib, cases)
-    assert four.tolist() == one.tolist()
+    four, k8, ok = _dense_verdicts(lib, cases)
+    assert four.tolist() == k8.tolist()
     assert (four & ok).tolist() == want
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7])
+def test_k8_item_on_ragged_groups(lib, n):
+    """K8 with n not a multiple of a block's 16 signatures: the groups past
+    n verify the last item again, store nothing and add nothing to the
+    tally; every stored verdict equals the spec's."""
+    cases = _cases()
+    cases = [cases[(5 * i + n) % len(cases)] for i in range(n)]
+    want = [ed.verify(*c) for c in cases]
+    four, k8, ok = _dense_verdicts(lib, cases)
+    assert (k8 & ok).tolist() == want
+    assert four.tolist() == k8.tolist()
 
 
 @pytest.mark.parametrize("mlen", [20, 110, 200])

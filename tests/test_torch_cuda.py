@@ -35,7 +35,9 @@ from tendermint_tpu_torch.crypto.ed25519_cuda import stub as TST
 from tendermint_tpu_torch.crypto.ed25519_cuda import verify as TV
 from tendermint_tpu_torch.crypto.merkle_cuda import sha256 as TS
 from tendermint_tpu_torch.crypto import bls12381 as tbls
+from tendermint_tpu_torch.crypto.bls12381 import curve as tcurve
 from tendermint_tpu_torch.crypto.bls12381 import vec as tvec
+from tendermint_tpu_torch.crypto.bls12381.field import P as BLS_P
 from tendermint_tpu_torch.crypto.bls12381_cuda import g2 as TG
 from tendermint_tpu_torch.tools import device_profile as tprofile
 from tendermint_tpu_torch.tools import g2_lanes
@@ -291,6 +293,28 @@ def test_tally_kernel_matches_plain_and_spec(_card):
         assert verdict.tolist() == want and total == exact
 
 
+@pytest.mark.parametrize("n", chip_smoke.RAGGED_NS)
+def test_tally_kernel_on_ragged_groups_and_lanes(_card, n):
+    """K8 at counts that end a warp or a block ragged, NBLK 1-3 mixed
+    inside warps and every adversarial class at every position of a warp:
+    verdicts and limb sums equal to the plain version, verdicts to the
+    spec."""
+    base, adv = _lane_cases(13)
+    items = chip_smoke._lane_items(base, adv, max(n, 8 * 8 * len(adv)))[:n]
+    pks, msgs, sigs = (list(x) for x in zip(*items))
+    bw, nblk, sw, ok = TV.prepare_batch(pks, msgs, sigs)
+    powers = np.random.default_rng(n).integers(1, 2**62, n) * ok
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(_card) for x in
+            (TV._as_i32(bw), nblk.astype(np.int32), TV._as_i32(sw),
+             TSH._power_limbs(powers))]
+    table = TC.base_table(_card)
+    pv, psums = TV.verify_tally_plain(*args, table)
+    spec = {c: ed.verify(*c) for c in set(items)}
+    v, sums = TV.verify_tally(*args, table)
+    assert torch.equal(v, pv) and torch.equal(sums, psums)
+    assert (v.cpu().numpy() & ok).tolist() == [spec[c] for c in items]
+
+
 @pytest.mark.parametrize("work", [0, 1000])
 def test_stub_kernels_match_plain(_card, work):
     """P1/P2 (with and without the tally) and P3: verdicts, burned words
@@ -374,13 +398,59 @@ def test_bls_g2_add_round_matches_plain_and_spec(_card):
         assert s == g2_lanes.spec_sum(ps[i], qs[i]), (i, kinds[i])
 
 
+def test_bls_fq_mul_matches_plain_on_edge_limbs(_card):
+    """The carry-chain product on the card against the plain version and
+    integers: 0, 1, p - 1, Montgomery one, values just under 2^384 mod p
+    and random limbs, once and three times in a row."""
+    P = BLS_P
+    rng = np.random.default_rng(12)
+    vals = [0, 1, 2, P - 1, P - 2, pow(2, 384, P), (2**384 - 1) % P,
+            (2**384 - 2**32) % P] + [int.from_bytes(rng.bytes(48), "little")
+                                     % P for _ in range(24)]
+    a_int = [x for x in vals for _ in vals]
+    b_int = [y for _ in vals for y in vals]
+    a = torch.from_numpy(TG.fq_to_limbs(a_int)).to(_card)
+    b = torch.from_numpy(TG.fq_to_limbs(b_int)).to(_card)
+    for reps in (1, 3):
+        got = TG.fq_mul(a, b, reps)
+        want = a
+        for _ in range(reps):
+            want = TG.fq_mul_plain(want, b)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert TG.fq_from_limbs(TG.fq_mul(a, b)) == [
+        x * y % P for x, y in zip(a_int, b_int)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 150, 257, 1000, 1024, 5000, 10000])
+def test_bls_g2_tree_sum_matches_plain_and_spec(_card, n):
+    """The one-launch tree over n keys (padded to a power of 2) equals the
+    plain tree on every limb of the root's Jacobian X, Y and Z, with a
+    doubling and a cancel inside the tree; its affine value is the curve
+    spec's sum. From 2^13 lanes (5,000 and 10,000 keys, the most signers of
+    a commit) a block asks for more than 48 KB of shared memory."""
+    affs = g2_lanes.tree_points(np.random.default_rng(13), n)
+    lanes = tvec._points_to_lanes(affs, _card)
+    want = TG.tree_sum_plain(lanes)
+    TG.reset_launches()
+    got = TG.tree_sum(lanes)
+    torch.cuda.synchronize()
+    assert TG.launches == {"bls_g2_add_round": 0, "bls_g2_tree_sum": 1,
+                           "bls_fq_mul": 0}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    root = TG.from_lanes(got)[0]
+    pt = (*affs[0], (1, 0))
+    for a in affs[1:]:
+        pt = tcurve.g2_add(pt, (*a, (1, 0)))
+    assert tcurve.g2_to_affine(root) == tcurve.g2_to_affine(pt)
+
+
 def test_bls_aggregate_150_on_the_card_matches_the_spec(_card):
     tbls.reset()
     tvec.reset_stats()
     pks = [tbls.sk_to_pk(tbls.sk_from_seed(bytes([i % 256, i // 256]) * 4))
            for i in range(150)]
     assert tvec.aggregate_pubkeys_vec(pks) == tbls.aggregate_pubkeys(pks)
-    assert TG.launches["bls_g2_add_round"] == 8
+    assert TG.launches["bls_g2_tree_sum"] == 1
     msg = b"aggregate on the card"
     sks = [tbls.sk_from_seed(bytes([i % 256, i // 256]) * 4)
            for i in range(150)]
@@ -389,5 +459,6 @@ def test_bls_aggregate_150_on_the_card_matches_the_spec(_card):
     assert not tvec.fast_aggregate_verify_routed(pks, b"other", agg)
     assert tvec.stats["device_calls"] == 2
     assert tvec.stats["device_errors"] == 0
-    assert TG.launches["bls_g2_add_round"] == 24
+    assert TG.launches["bls_g2_tree_sum"] == 3
+    assert TG.launches["bls_g2_add_round"] == 0
     tbls.reset()
