@@ -20,13 +20,19 @@ Phases, each reported on its own line:
    K8) against its plain version on the big commit's 10,240 signatures
    (every 97th invalid, powers 2^40) as one shard and as four shards of the
    card, the device-profile stub kernels (``stub_verify_dense``, P1/P2, and
-   ``stub_verify_sparse``, P3, at 0 and 20,000 LCG rounds) and P4
-   (``probe_sum_u8`` at 4 MB) against theirs; then the paths that run them:
+   ``stub_verify_sparse``, P3, at 0, 1, 15, 16, 17, 63, 64, 65 and 20,000
+   LCG rounds, on the whole pack and on slices from odd rows) and P4
+   (``probe_sum_u8`` at 4 MB) against theirs; the latency of one dependent
+   LCG round (one warp's chain of unrolled blocks of 256 rounds,
+   ``stub_chain``) and, from ``cuobjdump -sass``, the stubs' chains of
+   IMADs (the phase fails without cuobjdump); then the paths that run them:
    ``batch_verify_sharded`` over 1 and 4 shards with its exact tally,
    ``entry.dryrun_multichip(1)``, the MultiDeviceStream over two lanes of
    the card (20,480 signatures, verdicts equal to the single-device
    stream's), ``device_profile cost-model`` (P4) and a synthetic scale cell
-   (P1-P3); then their times.
+   (P1-P3); then their times, the stubs' beside their chain floor (rounds
+   x the round's latency; the phase fails above 2x) and the kernel alone
+   (torch.profiler).
 5. apply: block execution on a 150-validator chain with the Merkle kvstore
    app over an app state of 2^20 keys (BlockExecutor.apply_block ->
    validate_block -> verify_commit on the dense kernel; BeginBlock,
@@ -687,6 +693,23 @@ TALLY_POWER = 1 << 40
 MD_LANES = 2
 STUB_SIGS = 2 * N_BIG
 STUB_WORK = 20_000
+# the stubs are held against their plain versions at these round counts
+# (around 16 rounds and a block of STUB_BLOCK unrolled rounds, and the
+# scale cell's), on the whole pack and on slices from these rows (odd: the
+# diff columns of a slice start off a 16-byte boundary)
+STUB_CHECK_WORK = (0, 1, 15, 16, 17, 63, 64, 65, STUB_WORK)
+STUB_SLICE_ROWS = (0, 1, 33)
+# one warp's chain timed at two round counts (whole blocks of
+# STUB_CHAIN_BLOCK; 2 and 6 ms of chain, so that back-to-back launches
+# stay device-bound on a slow host), differenced: the latency of one
+# dependent round
+CHAIN_ROUNDS = (1_024_000, 3_072_000)
+# a stub at STUB_WORK rounds must take at most this many chain floors
+STUB_FLOOR_LIMIT = 2.0
+# rounds in one unrolled block of a stub's chain (csrc/stub.cuh) and of
+# stub_chain's (csrc/stub.cu)
+STUB_BLOCK = 64
+STUB_CHAIN_BLOCK = 256
 P4_BYTES = 4 << 20
 
 
@@ -712,6 +735,127 @@ def _streams_time_ms(fns, dev, reps=5):
         for st in streams:
             cur.wait_stream(st)
     return _time_ms(run_all, dev, reps)
+
+
+def _kernel_alone_ms(fn, dev, kernel: str, reps: int = 20):
+    """The device time (ms) of ``kernel`` per call of ``fn``, from a
+    torch.profiler trace of ``reps`` calls; None when the trace shows no
+    device time for it."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    us = sum(getattr(ev, "self_device_time_total", 0)
+             for ev in prof.key_averages() if kernel in ev.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def _sass_chain(lib_path) -> dict:
+    """Per kernel of a built library (cuobjdump -sass): its IMAD count and
+    its longest chain of dependent IMADs (each reads the register the one
+    before wrote, with the same multiplier and addend: a chain of LCG
+    rounds), with the chain's lines, for the kernels whose names hold
+    "stub". Raises when cuobjdump is not found or lists no such kernel."""
+    import re
+    import shutil
+
+    tool = next((str(p) for p in (Path("/usr/local/cuda/bin/cuobjdump"),)
+                 if p.exists()), None) or shutil.which("cuobjdump")
+    if tool is None:
+        raise AssertionError("cuobjdump not found: the stubs' SASS cannot "
+                             "be checked")
+    text = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    out, name = {}, None
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+    imad = re.compile(r"IMAD (R\d+), (R\d+), (.+)")
+    dest = re.compile(r"[A-Z0-9.]+ (R\d+)")
+    chains = {}  # the register a chain's last IMAD wrote -> its lines
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name, chains = m.group(1), {}
+            out[name] = {"imad": 0, "chain": 0, "lines": []}
+            continue
+        m = ins.search(line)
+        if not (m and name):
+            continue
+        rec, op = out[name], m.group(2).replace(".reuse", "")
+        c = imad.match(op)
+        if c:
+            rec["imad"] += 1
+            prev = chains.pop(c.group(2), [])
+            if prev and imad.match(prev[-1].split(" ", 1)[1]).group(3) \
+                    != c.group(3):
+                prev = []
+            chains[c.group(1)] = prev + [f"/*{m.group(1)}*/ {op}"]
+            if len(chains[c.group(1)]) > rec["chain"]:
+                rec["chain"] = len(chains[c.group(1)])
+                rec["lines"] = chains[c.group(1)]
+            continue
+        d = dest.match(op)
+        if d:  # another instruction overwrites a chain's register
+            chains.pop(d.group(1), None)
+    out = {fn: rec for fn, rec in out.items() if "stub" in fn}
+    for kernel in ("stub_verify_dense_kernel", "stub_verify_sparse_kernel",
+                   "stub_chain_kernel"):
+        if not any(kernel in fn for fn in out):
+            raise AssertionError(f"cuobjdump -sass lists no {kernel} in "
+                                 f"{lib_path}")
+    return out
+
+
+def stub_chain_latency(dev, smi: str) -> dict:
+    """One warp's chain of LCG rounds (``stub_chain``) at the two counts of
+    CHAIN_ROUNDS, CUDA events around back-to-back launches and the
+    kernel's clock64 counts, differenced: cycles and ns of one dependent
+    round; nvidia-smi's SM clock read just after. Raises if the chain's
+    words differ from the closed form."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.ed25519_cuda import stub as ST
+
+    ms, cyc = {}, {}
+    for rounds in CHAIN_ROUNDS:
+        out, cycles = ST.stub_chain(rounds, dev)
+        if not torch.equal(out.cpu(), ST.stub_chain_plain(rounds)):
+            raise AssertionError(f"stub_chain at {rounds} rounds != the "
+                                 "closed form")
+        cyc[rounds] = int(cycles.max().item())
+        ms[rounds] = _time_ms(lambda: ST.stub_chain(rounds, dev), dev, 10)
+    lo, hi = CHAIN_ROUNDS
+    sm_mhz = _nvidia_smi("clocks.sm")
+    rec = {"cycles_per_round": (cyc[hi] - cyc[lo]) / (hi - lo),
+           "ns_per_round": (ms[hi] - ms[lo]) * 1e6 / (hi - lo),
+           "rounds": list(CHAIN_ROUNDS), "ms": [ms[lo], ms[hi]],
+           "clock64": [cyc[lo], cyc[hi]], "clocks_sm": sm_mhz}
+    rec["implied_mhz"] = rec["cycles_per_round"] / rec["ns_per_round"] * 1e3
+    max_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    if rec["implied_mhz"] > 1.02 * max_mhz:
+        # fewer ns than the cycles take at the card's top clock: the
+        # launches were host-bound, and the floor would be too low
+        raise AssertionError(f"stub_chain: {rec['cycles_per_round']:.3f} "
+                             f"cycles in {rec['ns_per_round']:.4f} ns is "
+                             f"{rec['implied_mhz']:.0f} MHz, over the "
+                             f"card's {max_mhz:.0f}")
+    say(f"times: stub_chain (one warp): {rec['cycles_per_round']:.3f} "
+        f"cycles and {rec['ns_per_round']:.4f} ns a dependent round "
+        f"(clock64 {cyc[lo]} and {cyc[hi]}, events {ms[lo]:.4f} and "
+        f"{ms[hi]:.4f} ms at {lo} and {hi} rounds, differenced; implied "
+        f"clock {rec['implied_mhz']:.0f} MHz; nvidia-smi clocks.sm just "
+        f"after: {sm_mhz}) ({smi})")
+    return rec
+
+
+def _larger(row) -> str:
+    """Which floor of a stub's row is the larger: "chain" or "bound"."""
+    return "chain" if row["chain_floor_ms"] > row["bound_ms"] else "bound"
 
 
 def _same(what, k, p):
@@ -743,6 +887,7 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     from tendermint_tpu_torch.crypto.ed25519_cuda import curve
     from tendermint_tpu_torch.crypto.ed25519_cuda import multidevice as MD
     from tendermint_tpu_torch.crypto.ed25519_cuda import sharded as S
+    from tendermint_tpu_torch.crypto.ed25519_cuda import build as ed_build
     from tendermint_tpu_torch.crypto.ed25519_cuda import stub as ST
     from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
     from tendermint_tpu_torch.tools import device_profile as DP
@@ -785,28 +930,53 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     dense = V._dense_args(dbw, dnb, dsw, dev)
     slimbs = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
         0, 256, (dbw.shape[0], 8), dtype=np.int32)).to(dev)
-    stub_err = 0
-    for work in (0, STUB_WORK):
-        kv, kb, ks = ST.stub_verify_dense(*dense, work, limbs=slimbs)
-        pv, pb, ps = ST.stub_verify_dense_plain(*dense, work, limbs=slimbs)
-        stub_err = max(stub_err, _same("stub_verify_dense verdicts", kv, pv),
-                       _same("stub_verify_dense burned words", kb, pb),
-                       _same("stub_verify_dense limb sums", ks, ps))
     seg = STUB_SIGS // 2   # one segment of the synthetic multidev row
     sp = V.pack_sparse(spks[:seg], smsgs[:seg], ssigs[:seg], CHUNK)
     _, scols, sdv, smlen, sr, sa, ss = [torch.from_numpy(np.array(x)).to(dev)
                                         for x in sp[:7]]
-    sparse_err = 0
-    for work in (0, STUB_WORK):
-        kv, kb = ST.stub_verify_sparse(sdv, smlen, sr, sa, ss, work)
-        pv, pb = ST.stub_verify_sparse_plain(sdv, smlen, sr, sa, ss, work)
-        sparse_err = max(sparse_err,
-                         _same("stub_verify_sparse verdicts", kv, pv),
-                         _same("stub_verify_sparse burned words", kb, pb))
+    sparse = (sdv, smlen, sr, sa, ss)
+    stub_err = sparse_err = 0
+    for work in STUB_CHECK_WORK:
+        for row in STUB_SLICE_ROWS:
+            for lb in (None, slimbs):
+                args = [x[row:] for x in dense]
+                lbs = None if lb is None else lb[row:]
+                kv, kb, ks = ST.stub_verify_dense(*args, work, limbs=lbs)
+                pv, pb, ps = ST.stub_verify_dense_plain(*args, work,
+                                                        limbs=lbs)
+                stub_err = max(
+                    stub_err, _same("stub_verify_dense verdicts", kv, pv),
+                    _same("stub_verify_dense burned words", kb, pb),
+                    0 if lb is None else _same("stub_verify_dense limb sums",
+                                               ks, ps))
+            args = [x[row:] for x in sparse]
+            kv, kb = ST.stub_verify_sparse(*args, work)
+            pv, pb = ST.stub_verify_sparse_plain(*args, work)
+            sparse_err = max(sparse_err,
+                             _same("stub_verify_sparse verdicts", kv, pv),
+                             _same("stub_verify_sparse burned words", kb, pb))
     say(f"phase kernels: stub_verify_dense == plain on {dbw.shape[0]} items "
-        f"x NBLK {dbw.shape[1]} (verdicts, burned words, limb sums) and "
-        f"stub_verify_sparse == plain on {seg} items x {sdv.shape[1]} diff "
-        f"columns, each at device_work 0 and {STUB_WORK}")
+        f"x NBLK {dbw.shape[1]} (verdicts, burned words, limb sums; with "
+        f"and without limbs) and stub_verify_sparse == plain on {seg} items "
+        f"x {sdv.shape[1]} diff columns, each at device_work "
+        f"{', '.join(map(str, STUB_CHECK_WORK))}, on the whole pack and on "
+        f"the slices from rows {', '.join(map(str, STUB_SLICE_ROWS[1:]))}")
+    chain = stub_chain_latency(dev, smi)
+    # the stubs' ptxas lines are printed with every library's at the build
+    sass = _sass_chain(ed_build.PACKAGE.lib_paths()["stub"]) \
+        if dev.type == "cuda" else {}
+    for fn, rec in sass.items():
+        say(f"sass stub: {fn}: {rec['imad']} IMAD, the longest chain of "
+            f"dependent IMADs {rec['chain']}")
+        # a block of rounds (the remainder loop's round may extend it in
+        # the listing): a compiler that folded rounds into a multiply-add
+        # by a^k would leave fewer
+        want = STUB_CHAIN_BLOCK if "stub_chain" in fn else STUB_BLOCK
+        if rec["chain"] < want:
+            raise AssertionError(f"{fn}: a chain of {rec['chain']} "
+                                 f"dependent IMADs, not {want}")
+        for line in rec["lines"][:3] + ["..."] + rec["lines"][-2:]:
+            say(f"sass stub: {fn}:   {line}")
 
     x4 = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
         0, 256, P4_BYTES, dtype=np.uint8)).to(dev)
@@ -928,33 +1098,58 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
         f"ms (plain {k8_plain:.1f} ms, bound {k8_bound:.4f} ms by {k8_by}) "
         f"({smi})")
 
+    # each stub's time (CUDA events around back-to-back calls), the plain
+    # version's, the bound, the chain floor (its rounds x the latency of
+    # one dependent round, measured above) and the kernel alone (the
+    # profiler's device time)
     nd, words = dbw.shape[0], dbw.shape[1] * 32
     d_bytes = nd * (words * 4 + 4 + 32) + nd * 5
-    stub_d = {}
-    for work in (0, STUB_WORK):
-        ms = _time_ms(lambda: ST.stub_verify_dense(*dense, work), dev, 20)
-        plain = _time_ms(lambda: ST.stub_verify_dense_plain(*dense, work),
-                         dev, 3)
-        # a word read is one add; a round is one multiply-add
-        bound, by = _ops_bound(nd * (words + 9 + work), d_bytes, int32_peak)
-        stub_d[work] = (ms, plain, bound, by)
     c = sdv.shape[1]
     s_bytes = seg * (c + 4 + 96) + seg * 5
-    stub_s = {}
-    for work in (0, STUB_WORK):
-        ms = _time_ms(lambda: ST.stub_verify_sparse(sdv, smlen, sr, sa, ss,
-                                                    work), dev, 20)
-        plain = _time_ms(lambda: ST.stub_verify_sparse_plain(
-            sdv, smlen, sr, sa, ss, work), dev, 3)
-        bound, by = _ops_bound(seg * (c + 97 + work), s_bytes, int32_peak)
-        stub_s[work] = (ms, plain, bound, by)
-    for name, shape, rows in (
-            ("stub_verify_dense", f"{nd} x NBLK {dbw.shape[1]}", stub_d),
-            ("stub_verify_sparse", f"{seg} x {c} columns", stub_s)):
+    stubs = {
+        "stub_verify_dense": (
+            f"{nd} items x NBLK {dbw.shape[1]}",
+            lambda work: ST.stub_verify_dense(*dense, work),
+            lambda work: ST.stub_verify_dense_plain(*dense, work),
+            # a word read is one add; a round is one multiply-add
+            lambda work: _ops_bound(nd * (words + 9 + work), d_bytes,
+                                    int32_peak)),
+        "stub_verify_sparse": (
+            f"{seg} items x {c} columns",
+            lambda work: ST.stub_verify_sparse(*sparse, work),
+            lambda work: ST.stub_verify_sparse_plain(*sparse, work),
+            lambda work: _ops_bound(seg * (c + 97 + work), s_bytes,
+                                    int32_peak))}
+    stub_t = {}
+    for name, (shape, fn, plain_fn, bound_fn) in stubs.items():
+        rows = stub_t[name] = {}
+        for work in (0, STUB_WORK):
+            ms = _time_ms(lambda: fn(work), dev, 20)
+            plain = _time_ms(lambda: plain_fn(work), dev, 3)
+            bound, by = bound_fn(work)
+            alone = _kernel_alone_ms(lambda: fn(work), dev, name + "_kernel")
+            floor = work * chain["ns_per_round"] / 1e6
+            rows[work] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                          "bound_by": by, "kernel_ms": alone,
+                          "chain_floor_ms": floor}
         say(f"times: {name} {shape}: " + "; ".join(
-            f"device_work {w}: {ms:.4f} ms (plain {plain:.3f} ms, bound "
-            f"{bound:.6f} ms by {by})" for w, (ms, plain, bound, by)
-            in rows.items()) + f" ({smi})")
+            f"device_work {w}: {r['ms']:.4f} ms, the kernel alone "
+            + ("not measured" if r["kernel_ms"] is None
+               else f"{r['kernel_ms']:.4f} ms")
+            + f" (plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} "
+            f"ms by {r['bound_by']}, chain floor {r['chain_floor_ms']:.6f} "
+            f"ms: the {_larger(r)} is larger)" for w, r in rows.items())
+            + f" ({smi})")
+        top = rows[STUB_WORK]
+        say(f"times: {name} at {STUB_WORK} rounds: "
+            f"{top['ms'] / top['chain_floor_ms']:.3f}x its chain floor")
+        # the chain sets this kernel's time: at most STUB_FLOOR_LIMIT
+        # floors, as the probe is held to torch.sum below
+        if top["ms"] > STUB_FLOOR_LIMIT * top["chain_floor_ms"]:
+            raise AssertionError(
+                f"{name} at {STUB_WORK} rounds: {top['ms']:.4f} ms, over "
+                f"{STUB_FLOOR_LIMIT}x its chain floor "
+                f"{top['chain_floor_ms']:.4f} ms")
 
     p4_ms = _time_ms(lambda: V.probe_sum(x4), dev, 20)
     p4_plain = _time_ms(lambda: V.probe_sum_plain(x4), dev, 20)
@@ -982,18 +1177,18 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
         record("ed25519_verify_tally", f"{n} items x NBLK {bw.shape[1]}, "
                "one launch", tally_launches, tally_err, k8_ms, k8_plain,
                k8_bound, k8_by, ms_4_shards_4_streams=k8_4_ms),
-        record("stub_verify_dense", f"{nd} items x NBLK {dbw.shape[1]}, "
-               f"device_work {STUB_WORK}",
-               stub_launches["stub_verify_dense"], stub_err,
-               *stub_d[STUB_WORK], ms_work_0=stub_d[0][0],
-               plain_ms_work_0=stub_d[0][1], bound_ms_work_0=stub_d[0][2],
-               bound_by_work_0=stub_d[0][3]),
-        record("stub_verify_sparse", f"{seg} items x {c} columns, "
-               f"device_work {STUB_WORK}",
-               stub_launches["stub_verify_sparse"], sparse_err,
-               *stub_s[STUB_WORK], ms_work_0=stub_s[0][0],
-               plain_ms_work_0=stub_s[0][1], bound_ms_work_0=stub_s[0][2],
-               bound_by_work_0=stub_s[0][3]),
+        *(record(name, f"{stubs[name][0]}, device_work {STUB_WORK}",
+                 stub_launches[name], err,
+                 *(stub_t[name][STUB_WORK][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by")),
+                 kernel_ms=stub_t[name][STUB_WORK]["kernel_ms"],
+                 chain_floor_ms=stub_t[name][STUB_WORK]["chain_floor_ms"],
+                 ns_per_round=chain["ns_per_round"],
+                 cycles_per_round=chain["cycles_per_round"],
+                 **{f"{k}_work_0": v for k, v in stub_t[name][0].items()
+                    if k != "chain_floor_ms"})
+          for name, err in (("stub_verify_dense", stub_err),
+                            ("stub_verify_sparse", sparse_err))),
         record("probe_sum_u8 (P4)", f"{P4_BYTES} bytes", p4_launches,
                abs(k4 - p4), p4_ms, p4_plain, p4_bound, p4_by, p4_lib),
     ]
@@ -1002,7 +1197,7 @@ def run_sharded(dev, smi: str, int32_peak: float, signer, big_items) -> dict:
     return {"kernels": kernels, "summary": {
         "tally": totals[1], "multidev_ms": md_ms,
         "multidev_launches": md_launches, "cost_model": cost["results"],
-        "cost_model_seg_chunks": seg_chunks,
+        "cost_model_seg_chunks": seg_chunks, "stub_chain": chain,
         "scale_cell": cell["rows"], "phase_s": phase_s}}
 
 

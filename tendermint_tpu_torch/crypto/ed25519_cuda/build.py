@@ -28,4 +28,5 @@ PACKAGE = CudaPackage(
         "tm_stub_verify_sparse": (
             "stub", [c_void_p, c_int] + [c_void_p] * 6
             + [c_int, c_int, c_void_p]),
+        "tm_stub_chain": ("stub", [c_void_p, c_void_p, c_int, c_void_p]),
     })

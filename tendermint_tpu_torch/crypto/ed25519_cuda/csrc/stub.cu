@@ -12,15 +12,32 @@
 //   of its diff-column bytes, its R, A and s bytes, and mlen.
 //
 // Then device_work rounds of the LCG x * 1664525 + 1013904223 (mod 2^32)
-// and the verdict parity == 0. Both constants are odd, so each round flips
-// the parity and the verdict alone would let the compiler fold the loop to
-// parity ^ (rounds & 1): the burned word is written out as well, and the
-// loop is kept rolled, so every round is one dependent multiply-add on the
-// device. device_work comes in at run time.
+// (_burn :278-283) and the verdict parity == 0; the burned word is written
+// out too. device_work comes in at run time and stands for a verify's
+// cost: every round is one dependent multiply-add on the device.
 //
-// Bound: bytes at device_work 0 (each input read once); operations (2 a
-// round a thread) as device_work grows. Simple and right first: one thread
-// per item, its row read word by word.
+// What bounds them on this card. With device_work at 0, bytes: each input
+// read once. With rounds, not the INT32 peak (2 operations a round an
+// item, 0.012-0.025 ms at 20,000 rounds) but the chain: each item's rounds
+// depend one on the next, so no schedule beats rounds x the latency of one
+// dependent IMAD, whatever the occupancy.
+//
+// The design (stub.cuh). A warp owns 32 consecutive items and reads their
+// rows as one span, adjacent lanes on adjacent 16-byte words (4-byte
+// words, or bytes, where a slice's base is not so aligned: the diff
+// columns of a slice start at any byte), adds each word into its item's
+// slot in shared memory, and hands each lane its item's sum. The lane then
+// runs its rounds as an unrolled chain of one mad.lo.u32 (one IMAD) a
+// round in blocks of STUB_BLOCK, each round an asm volatile statement the
+// compiler can neither fold into one multiply-add by a^k nor drop, then the
+// rest one by one. The tally adds accepted items' limbs per block in shared
+// memory and then with one 64-bit atomicAdd per limb per block.
+//
+// stub_chain — on no path: one warp's chain of rounds between two clock64
+// reads, to measure the cycles of one dependent round on this card. Its
+// own chain, not stub_burn: unrolled blocks of STUB_CHAIN_BLOCK rounds, so
+// that its loop's branch is under a percent of the time and the floor it
+// measures (rounds x one round) does not grow with the stubs' overhead.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises on a non-zero code.
@@ -28,17 +45,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TM_THREADS 128
-#define TM_LIMBS 8
+#include "stub.cuh"
 
-__device__ __forceinline__ uint32_t stub_burn(uint32_t x, int rounds) {
-  // not unrolled: an unrolled body of k rounds folds into one
-  // multiply-add with constants a^k and c(a^(k-1) + ... + 1), which would
-  // cut the device work k-fold
-#pragma unroll 1
-  for (int r = 0; r < rounds; r++) x = x * 1664525u + 1013904223u;
-  return x;
-}
+#define TM_THREADS 128
 
 __global__ void __launch_bounds__(TM_THREADS)
 stub_verify_dense_kernel(const uint32_t *__restrict__ blocks,
@@ -49,30 +58,19 @@ stub_verify_dense_kernel(const uint32_t *__restrict__ blocks,
                          uint32_t *__restrict__ burned,
                          unsigned long long *__restrict__ sums, int n,
                          int nblk_max, int device_work) {
-  __shared__ unsigned long long part[TM_LIMBS];
-  if (limbs != nullptr && threadIdx.x < TM_LIMBS) part[threadIdx.x] = 0;
+  __shared__ uint32_t acc[TM_THREADS];
+  __shared__ unsigned long long part[STUB_LIMBS];
+  if (limbs != nullptr && threadIdx.x < STUB_LIMBS) part[threadIdx.x] = 0;
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const uint32_t *row = blocks + (size_t)i * nblk_max * 32;
-    uint32_t x = 0;
-    for (int w = 0; w < nblk_max * 32; w++) x += row[w];
-    for (int t = 0; t < 8; t++) x += s_words[(size_t)i * 8 + t];
-    x += (uint32_t)nblk[i];
-    x = stub_burn(x, device_work);
-    const bool ok = (x & 1u) == 0;
-    out[i] = ok ? 1 : 0;
-    burned[i] = x;
-    if (limbs != nullptr && ok) {
-      for (int j = 0; j < TM_LIMBS; j++) {
-        const int32_t v = limbs[(size_t)i * TM_LIMBS + j];
-        if (v) atomicAdd(&part[j], (unsigned long long)(uint32_t)v);
-      }
-    }
-  }
+  const int warp0 = threadIdx.x & ~31;
+  const int i0 = blockIdx.x * TM_THREADS + warp0;
+  const int rows = n - i0 < 32 ? n - i0 : 32;
+  if (rows > 0)  // the same for the whole warp
+    stub_dense_lane(blocks, nblk, s_words, limbs, out, burned, i0, rows,
+                    nblk_max, device_work, acc + warp0, part);
   if (limbs == nullptr) return;
   __syncthreads();
-  if (threadIdx.x < TM_LIMBS && part[threadIdx.x])
+  if (threadIdx.x < STUB_LIMBS && part[threadIdx.x])
     atomicAdd(&sums[threadIdx.x], part[threadIdx.x]);
 }
 
@@ -85,17 +83,33 @@ stub_verify_sparse_kernel(const uint8_t *__restrict__ dvals, int ncols,
                           uint8_t *__restrict__ out,
                           uint32_t *__restrict__ burned, int n,
                           int device_work) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x = 0;
-  for (int c = 0; c < ncols; c++) x += dvals[(size_t)i * ncols + c];
-  for (int b = 0; b < 32; b++)
-    x += (uint32_t)r[(size_t)i * 32 + b] + a[(size_t)i * 32 + b]
-         + s[(size_t)i * 32 + b];
-  x += (uint32_t)mlen[i];
-  x = stub_burn(x, device_work);
-  out[i] = (x & 1u) == 0 ? 1 : 0;
-  burned[i] = x;
+  __shared__ uint32_t acc[TM_THREADS];
+  const int warp0 = threadIdx.x & ~31;
+  const int i0 = blockIdx.x * TM_THREADS + warp0;
+  const int rows = n - i0 < 32 ? n - i0 : 32;
+  if (rows > 0)  // the same for the whole warp
+    stub_sparse_lane(dvals, ncols, mlen, r, a, s, out, burned, i0, rows,
+                     device_work, acc + warp0);
+}
+
+#define STUB_CHAIN_BLOCK 256
+
+__global__ void stub_chain_kernel(uint32_t *__restrict__ out,
+                                  long long *__restrict__ cycles,
+                                  int rounds) {
+  uint32_t x = threadIdx.x;
+  const long long t0 = clock64();
+  int r = rounds;
+#pragma unroll 1
+  for (; r >= STUB_CHAIN_BLOCK; r -= STUB_CHAIN_BLOCK) {
+#pragma unroll
+    for (int k = 0; k < STUB_CHAIN_BLOCK; k++) stub_round(x);
+  }
+#pragma unroll 1
+  for (; r > 0; r--) stub_round(x);
+  const long long t1 = clock64();
+  out[threadIdx.x] = x;
+  cycles[threadIdx.x] = t1 - t0;
 }
 
 static int tm_grid(int n) { return (n + TM_THREADS - 1) / TM_THREADS; }
@@ -128,5 +142,13 @@ extern "C" int tm_stub_verify_sparse(const void *dvals, int ncols,
         (const uint8_t *)r, (const uint8_t *)a, (const uint8_t *)s,
         (uint8_t *)out, (uint32_t *)burned, n, device_work);
   }
+  return (int)cudaGetLastError();
+}
+
+// out: 32 burned words (lane l starts from l); cycles: 32 int64
+extern "C" int tm_stub_chain(void *out, void *cycles, int rounds,
+                             void *stream) {
+  stub_chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (uint32_t *)out, (long long *)cycles, rounds);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,11 @@ how a batch is cut into segments, shards or lanes.
 Each wrapper takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises. The plain versions compute
 the LCG rounds in closed form (x -> A x + C mod 2^32, A and C from the
-round count), so they are not a copy of the kernel's loop.
+round count), so they are not a copy of the kernel's chain.
+
+:func:`stub_chain` is on no path: one warp's chain of rounds between two
+clock reads, which measures the cycles of one dependent round on the card
+(the floor of a stub's time at many rounds).
 """
 
 from __future__ import annotations
@@ -123,6 +127,25 @@ def stub_verify_sparse(diff_vals: torch.Tensor, mlen: torch.Tensor,
     return out.view(torch.bool), burned
 
 
+def stub_chain(rounds: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One warp of 32 lanes, lane l from x = l, through ``rounds`` LCG
+    rounds on the card -> ((32,) int32 burned words, (32,) int64 clock64
+    cycles each lane spent in its chain). Card only: a measurement of the
+    card, with no CPU version; not counted in :data:`launches`."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"stub_chain: measures the card, got {dev}")
+    work = _work(rounds)
+    lib = build.PACKAGE.library("stub")
+    with _on_device(dev):
+        out = torch.empty(32, dtype=torch.int32, device=dev)
+        cycles = torch.empty(32, dtype=torch.int64, device=dev)
+        rc = lib.tm_stub_chain(out.data_ptr(), cycles.data_ptr(), work,
+                               _stream_ptr(dev))
+    _launch_check(rc, "stub_chain")
+    return out, cycles
+
+
 # --- plain PyTorch versions ------------------------------------------------
 
 @functools.lru_cache(maxsize=64)
@@ -175,3 +198,8 @@ def stub_verify_sparse_plain(diff_vals, mlen, r, a, s, device_work: int = 0):
          + r.to(torch.int64).sum(dim=1) + a.to(torch.int64).sum(dim=1)
          + s.to(torch.int64).sum(dim=1) + (mlen.to(torch.int64) & M32))
     return _decide(x, device_work)
+
+
+def stub_chain_plain(rounds: int) -> torch.Tensor:
+    """The burned words of :func:`stub_chain`, (32,) int32 on the CPU."""
+    return _decide(torch.arange(32, dtype=torch.int64), rounds)[1]

@@ -315,27 +315,90 @@ def test_tally_kernel_on_ragged_groups_and_lanes(_card, n):
     assert (v.cpu().numpy() & ok).tolist() == [spec[c] for c in items]
 
 
-@pytest.mark.parametrize("work", [0, 1000])
+#: rows [lo, hi) of the stub checks' batch: all of it, slices that start at
+#: an odd row (unaligned diff columns), ragged warps, one item
+STUB_SLICES = ((0, 1000), (1, 1000), (3, 36), (33, 34), (31, 95))
+
+
+def _shifted(t, nbytes):
+    """A copy of ``t`` whose data starts ``nbytes`` past a 16-byte
+    boundary: the kernels' reads below 16-byte words."""
+    if t.numel() == 0:
+        return t
+    buf = torch.zeros(t.numel() * t.element_size() + 32, dtype=torch.uint8,
+                      device=t.device)
+    start = (-buf.data_ptr()) % 16 + nbytes
+    out = buf[start:start + t.numel() * t.element_size()].view(
+        t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+@pytest.mark.parametrize("work", [0, 1, 15, 16, 17, 63, 64, 65, 1000])
 def test_stub_kernels_match_plain(_card, work):
     """P1/P2 (with and without the tally) and P3: verdicts, burned words
-    and limb sums equal to the plain versions."""
+    and limb sums equal to the plain versions, on the whole batch and on
+    slices that start at an odd row, at 0, 1, 4, 5 and the packer's diff
+    columns, and on a second stream."""
     pks, msgs, sigs = tprofile.build_workload(1000, seed=work)
     bw, nblk, sw, _ = TV.prepare_batch(pks, msgs, sigs)
     dense = TV._dense_args(bw, nblk, sw, _card)
     limbs = torch.randint(0, 256, (1000, 8), dtype=torch.int32,
                           device=_card)
-    for lb in (None, limbs):
-        got = TST.stub_verify_dense(*dense, work, limbs=lb)
-        want = TST.stub_verify_dense_plain(*dense, work, limbs=lb)
-        for g, w in zip(got, want):
-            assert (g is None and w is None) or torch.equal(g, w)
     packed = TV.pack_sparse(pks, msgs, sigs, 256)
     _, _, dv, ml, r, a, s = [torch.from_numpy(np.array(x)).to(_card)
                              for x in packed[:7]]
-    got = TST.stub_verify_sparse(dv, ml, r, a, s, work)
-    want = TST.stub_verify_sparse_plain(dv, ml, r, a, s, work)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert TST.launches == {"stub_verify_dense": 2, "stub_verify_sparse": 1}
+    gen = torch.Generator().manual_seed(work)
+    diffs = [dv] + [torch.randint(0, 256, (1000, c), dtype=torch.uint8,
+                                  generator=gen).to(_card)
+                    for c in (0, 1, 4, 5)]
+    # the same rows 4 bytes (int32 words) and 1 byte (bytes) past a 16-byte
+    # boundary
+    def shift(x):
+        return _shifted(x, 1 if x.dtype == torch.uint8 else 4)
+
+    inputs = [(dense, limbs, [(d, ml, r, a, s) for d in diffs]),
+              ([shift(x) for x in dense], shift(limbs),
+               [[shift(x) for x in (d, ml, r, a, s)] for d in diffs])]
+    side = torch.cuda.Stream(device=_card)
+    launched = {"stub_verify_dense": 0, "stub_verify_sparse": 0}
+    for stream in (torch.cuda.current_stream(_card), side):
+        with torch.cuda.stream(stream):
+            got_d, want_d, got_s, want_s = [], [], [], []
+            for (dn, lm, sp), (lo, hi) in (
+                    (i, sl) for i in inputs for sl in STUB_SLICES):
+                for lb in (None, lm):
+                    args = [x[lo:hi] for x in dn]
+                    lbs = None if lb is None else lb[lo:hi]
+                    got_d.append(TST.stub_verify_dense(*args, work,
+                                                       limbs=lbs))
+                    want_d.append(TST.stub_verify_dense_plain(
+                        *args, work, limbs=lbs))
+                    launched["stub_verify_dense"] += 1
+                for cols in sp:
+                    args = [x[lo:hi] for x in cols]
+                    got_s.append(TST.stub_verify_sparse(*args, work))
+                    want_s.append(TST.stub_verify_sparse_plain(*args, work))
+                    launched["stub_verify_sparse"] += 1
+        torch.cuda.synchronize(_card)
+        for got, want in zip(got_d, want_d):
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
+        for got, want in zip(got_s, want_s):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert TST.launches == launched
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 17, 256, 257, 20_000])
+def test_stub_chain_matches_closed_form(_card, rounds):
+    """The one-warp chain that measures a round's latency: its words equal
+    the closed form, and its clock counts grow with the rounds."""
+    out, cycles = TST.stub_chain(rounds, _card)
+    assert torch.equal(out.cpu(), TST.stub_chain_plain(rounds))
+    assert int(cycles.min()) >= 0
+    if rounds >= 1000:
+        assert int(cycles.min()) >= rounds
 
 
 def test_two_lanes_on_one_card(_card):

@@ -58,13 +58,20 @@ def _reset():
         tbatch.stats[k] = 0
 
 
+#: the knobs that route and gate this file's paths. Other tests in the
+#: same process may leave them set: tools/crashmatrix.py ``run_matrix``,
+#: run in process by tests/test_crashmatrix.py, sets TMTPU_BATCH_BACKEND to
+#: "host" for good, and verify_commit then never reaches the pool.
+_KNOBS = (MD.ENV_DEVICES, MD.ENV_MIN_SIGS, MD.ENV_PROFILE, "TMTPU_SEG_CHUNKS",
+          "TMTPU_BATCH_BACKEND", "TMTPU_DEVICE_THRESHOLD",
+          "TMTPU_DEVICE_BREAKER_THRESHOLD", "TMTPU_DEVICE_BREAKER_COOLDOWN_S")
+
+
 @pytest.fixture(autouse=True)
 def _port_state(monkeypatch):
     device.set_default_device("cpu")
-    monkeypatch.delenv(MD.ENV_DEVICES, raising=False)
-    monkeypatch.delenv(MD.ENV_MIN_SIGS, raising=False)
-    monkeypatch.delenv(MD.ENV_PROFILE, raising=False)
-    monkeypatch.delenv("TMTPU_SEG_CHUNKS", raising=False)
+    for knob in _KNOBS:
+        monkeypatch.delenv(knob, raising=False)
     _reset()
     yield
     _reset()
