@@ -4,9 +4,11 @@ Takes only bytes and numpy arrays — never objects or modules of
 ``tendermint_tpu`` — so the port stays importable where that package
 cannot be:
 
-* :func:`validator_set_from_reference` / :func:`commit_from_reference`
+* :func:`validator_set_from_reference` / :func:`commit_from_reference` /
+  :func:`signed_header_from_reference` / :func:`light_block_from_reference`
   decode the JAX package's ``ValidatorSet.encode()`` / ``Commit.encode()``
-  bytes (the same proto wire format) into the port's types;
+  / ``SignedHeader.encode()`` / ``LightBlock.encode()`` bytes (the same
+  proto wire format) into the port's types;
 * :func:`base_table_from_reference` converts the JAX fixed-base table
   (``curve._build_base_table``: (64, 16, 3, 17) u32, 17 limbs of 15 bits)
   into the port's (64, 16, 3, 10) layout of 26/25-bit limbs.
@@ -18,6 +20,7 @@ import numpy as np
 
 from .crypto.ed25519_cuda import field as F
 from .types.block import Commit
+from .types.light_block import LightBlock, SignedHeader
 from .types.validator_set import ValidatorSet
 
 _REF_NLIMBS = 17
@@ -30,6 +33,14 @@ def validator_set_from_reference(encoded: bytes) -> ValidatorSet:
 
 def commit_from_reference(encoded: bytes) -> Commit:
     return Commit.decode(encoded)
+
+
+def signed_header_from_reference(encoded: bytes) -> SignedHeader:
+    return SignedHeader.decode(encoded)
+
+
+def light_block_from_reference(encoded: bytes) -> LightBlock:
+    return LightBlock.decode(encoded)
 
 
 def base_table_from_reference(table: np.ndarray) -> np.ndarray:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextvars
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +45,9 @@ logger = logging.getLogger("tmtpu.batch")
 DEFAULT_DEVICE_THRESHOLD = 16
 _HOST_SIGS_PER_SEC_ESTIMATE = 7000.0  # OpenSSL verify ~140 us/op
 _calibrated_threshold: Optional[int] = None
+# flushes of the light-serving coalescer run in executor threads: the
+# first two may ask at once, and only one of them calibrates
+_calibration_lock = threading.Lock()
 
 
 # routed batches must never lose to the scalar loop: bias the calibrated
@@ -62,24 +66,29 @@ def device_threshold() -> int:
     env = os.environ.get("TMTPU_DEVICE_THRESHOLD")
     if env:
         return int(env)
-    if _calibrated_threshold is None:
-        try:
-            from .ed25519_cuda.verify import probe_dispatch_seconds
+    if _calibrated_threshold is not None:
+        return _calibrated_threshold
+    with _calibration_lock:
+        if _calibrated_threshold is None:
+            try:
+                from .ed25519_cuda.verify import probe_dispatch_seconds
 
-            probe_dispatch_seconds()  # first use builds and loads the kernel
-            overhead = min(probe_dispatch_seconds(), probe_dispatch_seconds())
-            _calibrated_threshold = max(
-                DEFAULT_DEVICE_THRESHOLD,
-                int(overhead * _HOST_SIGS_PER_SEC_ESTIMATE
-                    * _CALIBRATION_SAFETY))
-        except KernelUnavailable:
-            raise
-        except Exception as e:
-            # calibration failure is routing advice, not correctness: fall
-            # back to the static default — but say so
-            logger.warning("device-threshold calibration failed (%s); "
-                           "using default %d", e, DEFAULT_DEVICE_THRESHOLD)
-            _calibrated_threshold = DEFAULT_DEVICE_THRESHOLD
+                # the first use builds and loads the kernel
+                probe_dispatch_seconds()
+                overhead = min(probe_dispatch_seconds(),
+                               probe_dispatch_seconds())
+                _calibrated_threshold = max(
+                    DEFAULT_DEVICE_THRESHOLD,
+                    int(overhead * _HOST_SIGS_PER_SEC_ESTIMATE
+                        * _CALIBRATION_SAFETY))
+            except KernelUnavailable:
+                raise
+            except Exception as e:
+                # calibration failure is routing advice, not correctness:
+                # fall back to the static default — but say so
+                logger.warning("device-threshold calibration failed (%s); "
+                               "using default %d", e, DEFAULT_DEVICE_THRESHOLD)
+                _calibrated_threshold = DEFAULT_DEVICE_THRESHOLD
     return _calibrated_threshold
 
 

@@ -9,6 +9,11 @@ aggregated commit is shaped like the JAX package's bench
 (``bench.py::_mk_bls_aggregated_commit``): every validator signs the same
 zero-timestamp precommit payload, power 10, and the signatures fold into
 one 48-byte aggregate.
+
+``light_chain`` and ``bls_light_chain`` build header chains of
+LightBlocks for the light client (each header's time is the chain's start
+plus its height in seconds, like tests/test_light_client.py's builder),
+signed by seeded Ed25519 sets or aggregated by a BLS fixture's set.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import os
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import get_context
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,7 +32,8 @@ from ..crypto import schemes
 from ..libs.bits import BitArray
 from ..types import (BlockID, BlockIDFlag, PartSetHeader, SignedMsgType,
                      ValidatorSet)
-from ..types.block import AggregatedCommit, Commit, CommitSig
+from ..types.block import AggregatedCommit, Commit, CommitSig, Header
+from ..types.light_block import LightBlock, SignedHeader
 from ..types.params import SignatureParams
 from ..types.canonical import vote_sign_bytes
 from ..types.validator import new_validator
@@ -40,7 +46,17 @@ def _keygen_chunk(seeds: Sequence[bytes]) -> List[bytes]:
 
 
 def _sign_chunk(jobs: Sequence[Tuple[bytes, bytes]]) -> List[bytes]:
-    return [ed.sign(ed.keygen(seed)[0], msg) for seed, msg in jobs]
+    # a key derivation costs a scalar multiplication, as a signature does:
+    # derive each seed's key once per chunk (jobs that share a seed and sit
+    # next to each other sign at half the cost)
+    keys: Dict[bytes, bytes] = {}
+    out = []
+    for seed, msg in jobs:
+        priv = keys.get(seed)
+        if priv is None:
+            priv = keys[seed] = ed.keygen(seed)[0]
+        out.append(ed.sign(priv, msg))
+    return out
 
 
 def _bls_keygen_chunk(seeds: Sequence[bytes]) -> List[Tuple[bytes, bytes]]:
@@ -125,7 +141,8 @@ def sign_commit(signer: Signer, seed_of: Dict[bytes, bytes],
 class CommitFixture:
     """A validator set of equal power and a commit in which every validator
     signed the block, built from ``rng``: ``valset``, ``commit``,
-    ``block_id``, ``height``, ``chain_id``, ``sigs`` (in validator order)."""
+    ``block_id``, ``height``, ``chain_id``, ``sigs`` (in validator order)
+    and ``seed_of`` (address -> key seed)."""
 
     def __init__(self, signer: Signer, rng: np.random.Generator, n: int,
                  chain_id: str, height: int, power: int = 10):
@@ -141,6 +158,7 @@ class CommitFixture:
         self.timestamps = [BASE_TIME_S * 10**9 + int(x) for x in
                            rng.integers(300_000_000, 999_999_999, n)]
         self.valset, self.chain_id, self.height = vs, chain_id, height
+        self.seed_of = seed_of
         self.commit = sign_commit(signer, seed_of, vs, chain_id, height,
                                   self.block_id, self.timestamps)
         self.sigs = [cs.signature for cs in self.commit.signatures]
@@ -193,19 +211,25 @@ class BlsCommitFixture:
                                self.height if height is None else height, 0,
                                self.block_id, schemes.AGG_ZERO_TS_NS)
 
-    def make_commit(self, signer_idxs, msg: bytes = None) -> AggregatedCommit:
+    def make_commit(self, signer_idxs, msg: bytes = None, height: int = None,
+                    block_id: BlockID = None) -> AggregatedCommit:
         """The commit whose bitmap holds ``signer_idxs`` and whose aggregate
         folds their signatures over ``msg`` (the block's payload unless
+        given), for ``block_id`` at ``height`` (the fixture's unless
         given)."""
         idxs = sorted(signer_idxs)
-        msg = self.message() if msg is None else msg
+        height = self.height if height is None else height
+        block_id = self.block_id if block_id is None else block_id
+        if msg is None:
+            msg = vote_sign_bytes(self.chain_id, SignedMsgType.PRECOMMIT,
+                                  height, 0, block_id, schemes.AGG_ZERO_TS_NS)
         vals = self.valset.validators
         agg = self.signer.bls_aggregate([(self.seed_of[vals[i].address], msg)
                                          for i in idxs])
         bits = BitArray(self.valset.size())
         for i in idxs:
             bits.set_index(i, True)
-        return AggregatedCommit(self.height, 0, self.block_id, [],
+        return AggregatedCommit(height, 0, block_id, [],
                                 signers=bits, agg_sig=agg,
                                 timestamp_ns=self.TIMESTAMP_NS)
 
@@ -220,3 +244,95 @@ class BlsCommitFixture:
     def verify_light_trusting(self, trust_level=(1, 3)) -> None:
         self.valset.verify_commit_light_trusting(
             self.chain_id, self.commit, trust_level, commit_vals=self.valset)
+
+
+# -- header chains for the light client --------------------------------------
+
+#: a validator set of a height and its signers' seeds (address -> seed)
+KeySet = Tuple[ValidatorSet, Dict[bytes, bytes]]
+
+
+def light_header(chain_id: str, height: int, time_ns: int,
+                 last_block_id: BlockID, vals: ValidatorSet,
+                 next_vals: ValidatorSet,
+                 app_hash: bytes = b"\x04" * 32) -> Header:
+    """A header at ``height`` whose set is ``vals`` and whose next set is
+    ``next_vals`` (constant hashes elsewhere, as tests/test_light_client.py
+    builds them)."""
+    return Header(
+        chain_id=chain_id, height=height, time_ns=time_ns,
+        last_block_id=last_block_id,
+        last_commit_hash=b"\x01" * 32, data_hash=b"\x02" * 32,
+        validators_hash=vals.hash(), next_validators_hash=next_vals.hash(),
+        consensus_hash=b"\x03" * 32, app_hash=app_hash,
+        last_results_hash=b"\x05" * 32, evidence_hash=b"\x06" * 32,
+        proposer_address=vals.validators[0].address)
+
+
+def _block_id(header: Header) -> BlockID:
+    return BlockID(header.hash(), PartSetHeader(1, b"\x07" * 32))
+
+
+def light_chain(signer: Signer, chain_id: str, sets: Callable[[int], KeySet],
+                heights: Sequence[int], t0_ns: int,
+                base: Optional[Dict[int, LightBlock]] = None,
+                app_hash: bytes = b"\x04" * 32) -> Dict[int, LightBlock]:
+    """LightBlocks at the consecutive ``heights``, continuing ``base`` (the
+    blocks below them, which it also returns). Height h's header is at
+    ``t0_ns`` + h seconds, its set ``sets(h)``, its next set
+    ``sets(h + 1)``; every validator signs its precommit at the header's
+    time + 0.1 s + i us (9-digit nanos: one sign-bytes template a commit).
+    All signatures are made in one pass of the pool."""
+    blocks = dict(base or {})
+    prev = blocks.get(heights[0] - 1)
+    last = prev.signed_header.commit.block_id if prev else BlockID()
+    heads = []
+    for h in heights:
+        vals, next_vals = sets(h)[0], sets(h + 1)[0]
+        hdr = light_header(chain_id, h, t0_ns + h * 10**9, last, vals,
+                           next_vals, app_hash)
+        last = _block_id(hdr)
+        stamps = [hdr.time_ns + 100_000_000 + 1_000 * i
+                  for i in range(vals.size())]
+        heads.append((hdr, last, stamps))
+    # validator-major order: a worker's chunk holds one key's signatures
+    # over many heights (see _sign_chunk)
+    jobs, where = [], []
+    n_max = max(sets(h)[0].size() for h in heights)
+    for i in range(n_max):
+        for k, h in enumerate(heights):
+            vals, seed_of = sets(h)
+            if i < vals.size():
+                hdr, bid, stamps = heads[k]
+                jobs.append((seed_of[vals.validators[i].address],
+                             vote_sign_bytes(chain_id, SignedMsgType.PRECOMMIT,
+                                             h, 0, bid, stamps[i])))
+                where.append((k, i))
+    sigs = [[None] * sets(h)[0].size() for h in heights]
+    for (k, i), sig in zip(where, signer.sign(jobs)):
+        sigs[k][i] = sig
+    for k, h in enumerate(heights):
+        vals = sets(h)[0]
+        hdr, bid, stamps = heads[k]
+        commit = Commit(h, 0, bid, [
+            CommitSig(BlockIDFlag.COMMIT, v.address, t, sg)
+            for v, t, sg in zip(vals.validators, stamps, sigs[k])])
+        blocks[h] = LightBlock(SignedHeader(hdr, commit), vals)
+    return blocks
+
+
+def bls_light_chain(fixture: "BlsCommitFixture", heights: Sequence[int],
+                    t0_ns: int) -> Dict[int, LightBlock]:
+    """LightBlocks at the consecutive ``heights`` of ``fixture``'s chain,
+    whose set never changes: each commit is the aggregate of every
+    validator's signature over the zero-timestamp precommit payload."""
+    blocks, last = {}, BlockID()
+    vs = fixture.valset
+    for h in heights:
+        hdr = light_header(fixture.chain_id, h, t0_ns + h * 10**9, last, vs,
+                           vs)
+        last = _block_id(hdr)
+        commit = fixture.make_commit(range(vs.size()), height=h,
+                                     block_id=last)
+        blocks[h] = LightBlock(SignedHeader(hdr, commit), vs)
+    return blocks

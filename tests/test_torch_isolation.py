@@ -88,7 +88,17 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.state.execution",
                  "tendermint_tpu_torch.state.store",
                  "tendermint_tpu_torch.state.validation",
-                 "tendermint_tpu_torch.store.block_store"):
+                 "tendermint_tpu_torch.store.block_store",
+                 "tendermint_tpu_torch.config",
+                 "tendermint_tpu_torch.libs.peerscore",
+                 "tendermint_tpu_torch.light",
+                 "tendermint_tpu_torch.light.client",
+                 "tendermint_tpu_torch.light.provider",
+                 "tendermint_tpu_torch.light.serve",
+                 "tendermint_tpu_torch.light.store",
+                 "tendermint_tpu_torch.light.verifier",
+                 "tendermint_tpu_torch.rpc",
+                 "tendermint_tpu_torch.rpc.json_enc"):
         assert name in imported
 
 
