@@ -60,6 +60,35 @@ Phases, each reported on its own line:
    host time by part (the store's saves, ``validate_basic``, the batched
    call, the replay) and the launches, which the kernels line adds to
    K5/K6, K7, K11 and K10's.
+4d. evidence, votes, ingest (one CryptoMetrics registry wired through
+   ``set_crypto_metrics``; the launches go to K5/K6, K7 and K11's rows).
+   evidence: 1,000 validators of equal power (the light phase's set)
+   apply 8 heights through ``BlockExecutor`` with the kvstore app, an
+   ``EvidencePool`` and an ``EventBus`` with one subscriber (the first
+   batch calibrates with K11); a lunatic light-client attack (common
+   height 4, conflicting 6, signed by 500 of the set), an equivocation
+   (both 6), 16 duplicate votes of distinct validators and three
+   forgeries (a commit with a zeroed signature at index 400, a bad
+   signature, a wrong validator power) go through ``add_evidence``, each
+   verdict and error text equal to the port's ``verify_evidence`` on the
+   host route (run in the spawn pool); height 9 carries the pending
+   evidence, which is then committed, and the subscriber sees one
+   NewEvidence per piece. votes: a prevote and a precommit round of the
+   10,240 validators (every 97th signature invalid) preverified by 64
+   peer tasks through a ``BatchVoteVerifier`` at its defaults (one K5
+   launch a device flush, from executor threads), every verdict equal
+   to the host spec, then ``VoteSet.add_vote`` over every vote on cache
+   hits alone; an armed ``device.vote_flush`` reaches every future of its
+   flush and caches nothing; then ``_device_cached``'s ``record_stream``
+   under a race on the card (K7 on a side stream, its key buffer evicted
+   and overwritten from the default stream). ingest: 5,700 concurrent
+   broadcasts (4,500 signed by 500 senders, 500 unsigned, 400 bad
+   signatures, 100 malformed, 200 resubmitted) through ``IngestPipeline``
+   (batches of 256, 5 ms) into a ``ShardedMempool`` of 5,000 (Tendermint
+   v0.34's ``[mempool] size``), each response equal to the scalar path's;
+   the reap order; a commit of 1,000 rechecks on the verdict cache; an
+   armed ``device.batch_verify`` reaches each broadcast of its flush and
+   a resubmission is admitted.
 5. apply: block execution on a 150-validator chain with the Merkle kvstore
    app over an app state of 2^20 keys (BlockExecutor.apply_block ->
    validate_block -> verify_commit on the dense kernel; BeginBlock,
@@ -709,8 +738,8 @@ def run(dev, smi: str, int32_peak: float, signer) -> dict:
         k["replaces"] = TPU_KERNELS[k["name"]]
     return {"kernels": kernels, "verify_commit_sigs_per_s": rates,
             "big_items": (pk_big, sb_big, sigs_big),
-            "light_keys": [(v.pub_key, big.seed_of[v.address]) for v in
-                           big.valset.validators[:LIGHT_VALIDATORS]]}
+            "keys": [(v.pub_key, big.seed_of[v.address]) for v in
+                     big.valset.validators]}
 
 
 # --- 5b. light: the light client and its serving plane over a header chain
@@ -1317,6 +1346,923 @@ def run_light(dev, smi: str, signer, keys) -> dict:
     return {"launches": launches, "summary": summary}
 
 
+# --- 4d. the evidence pool, the event bus, the live-vote micro-batcher and
+# the mempool ingest plane on K5/K7 -------------------------------------------
+
+EVIDENCE_CHAIN_ID = "chip-smoke-evidence"
+EVIDENCE_VALIDATORS = 1000   # BASELINE.json config #3's set (LIGHT_VALIDATORS)
+EVIDENCE_HEIGHTS = 8
+EVIDENCE_TXS = 16            # kvstore txs a height
+LCA_LUNATIC = (4, 6)         # (common, conflicting) heights
+LCA_LUNATIC_SIGNERS = 500    # the lunatic header's set: the first 500
+LCA_EQUIVOCATION = 6         # common = conflicting
+LCA_FORGED = 7               # an equivocation whose commit is forged ...
+LCA_BAD_IDX = 400            # ... by a zeroed signature inside 2/3 of power
+DUPLICATE_VOTES = 16
+VOTE_CHAIN_ID = "chip-smoke-votes"
+VOTE_HEIGHT = 5
+VOTE_PEERS = 64
+VOTE_INVALID_EVERY = 97
+VOTE_FAULT_VOTES = 64
+# the mempool at Tendermint v0.34's config.toml defaults ([mempool] size,
+# cache_size); the pipeline at the JAX package's (batch_max 256, 5 ms)
+INGEST_SIZE = 5000
+INGEST_CACHE = 10000
+INGEST_SENDERS = 500
+INGEST_VALID = 4500
+INGEST_UNSIGNED = 500
+INGEST_BAD_SIG = 400
+INGEST_MALFORMED = 100
+INGEST_DUPS = 200
+INGEST_COMMIT = 1000
+INGEST_FAULT_TXS = 256
+# ROADMAP §3 item 2: the side stream spins this long before K7 reads the
+# cached keys (~0.5 s at 1,980 MHz)
+RS_SLEEP_CYCLES = 1_000_000_000
+
+
+def _outcome(fn):
+    """None, or (exception class name, str): a verdict under comparison."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the verdict IS the exception
+        return type(e).__name__, str(e)
+    return None
+
+
+def _evidence_outcome(job):
+    """Spawn-pool worker: ``validate_basic`` then the port's
+    ``verify_evidence`` on the host route (``TMTPU_BATCH_BACKEND=host``)
+    over one encoded evidence item, against the chain's headers and
+    validator sets (encoded, by height). None or (class, text)."""
+    from types import SimpleNamespace
+
+    os.environ["TMTPU_BATCH_BACKEND"] = "host"
+    from tendermint_tpu_torch.evidence import verify_evidence
+    from tendermint_tpu_torch.types.block import Header
+    from tendermint_tpu_torch.types.evidence import decode_evidence
+    from tendermint_tpu_torch.types.params import EvidenceParams
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    ev_bytes, chain_id, height, time_ns, params, vals, headers = job
+    ev = decode_evidence(ev_bytes)
+    vsets = {h: ValidatorSet.decode(b) for h, b in vals.items()}
+    metas = {h: SimpleNamespace(header=Header.decode(b))
+             for h, b in headers.items()}
+    state = SimpleNamespace(
+        chain_id=chain_id, last_block_height=height,
+        last_block_time_ns=time_ns,
+        consensus_params=SimpleNamespace(evidence=EvidenceParams(*params)))
+    store = SimpleNamespace(load_validators=vsets.get,
+                            load_block_meta=metas.get, height=lambda: height)
+
+    def check():
+        ev.validate_basic()
+        verify_evidence(ev, state, store, store)
+    return _outcome(check)
+
+
+def run_evidence(dev, smi: str, signer, keys) -> dict:
+    """Phase evidence: a chain of EVIDENCE_VALIDATORS validators of equal
+    power (``keys``: (pubkey, seed) of the big commit's first validators)
+    applied for EVIDENCE_HEIGHTS heights through ``BlockExecutor`` with the
+    kvstore app, an ``EvidencePool`` and an ``EventBus`` with one
+    subscriber; then two light-client attacks, DUPLICATE_VOTES duplicate
+    votes and three forgeries through ``EvidencePool.add_evidence``, each
+    verdict held against the port's ``verify_evidence`` on the host route
+    (in the spawn pool); then the next height carries the pending
+    evidence. Returns the kernels' launches and a summary. Raises on any
+    failed check."""
+    import dataclasses
+
+    import numpy as np
+
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.abci.example.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.state import (BlockExecutor, StateStore,
+                                            state_from_genesis)
+    from tendermint_tpu_torch.state.execution import NoOpMempool
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types import (BlockID, GenesisDoc,
+                                            GenesisValidator, ValidatorSet,
+                                            new_validator)
+    from tendermint_tpu_torch.types import events as tme
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.event_bus import EventBus
+
+    tdevice.set_default_device(dev)
+    os.environ.pop("TMTPU_BATCH_BACKEND", None)
+    rng = np.random.default_rng(SEED + 10)
+    t0_ns = commits.BASE_TIME_S * 10**9
+    seed_of = {pk.address(): sd for pk, sd in keys}
+    conns = AppConns(local_client_creator(KVStoreApplication()))
+    conns.start()
+    state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+    pool = EvidencePool(MemDB(), state_store, block_store)
+    bus = EventBus()
+    sub = bus.subscribe("chip-smoke", "tm.event EXISTS", out_capacity=1 << 16)
+    executor = BlockExecutor(state_store, conns.consensus, NoOpMempool(),
+                             pool, block_store, event_bus=bus)
+    state = state_from_genesis(GenesisDoc(
+        chain_id=EVIDENCE_CHAIN_ID, genesis_time_ns=t0_ns,
+        validators=[GenesisValidator(pk, 10) for pk, _ in keys]))
+    state_store.save(state)
+    pool.set_state(state)
+    chain = {"state": state, "last": Commit(0, 0, BlockID(), [])}
+    steps = {}
+
+    def apply(h, block=None, parts=None):
+        st = chain["state"]
+        if block is None:
+            txs = [b"e%d-%02d=%s" % (h, i, rng.bytes(8).hex().encode())
+                   for i in range(EVIDENCE_TXS)]
+            block, parts = st.make_block(
+                h, txs, chain["last"], [],
+                st.validators.get_proposer().address)
+        bid = BlockID(block.hash(), parts.header())
+        t = time.perf_counter()
+        chain["state"], _ = executor.apply_block(st, bid, block)
+        steps[f"apply {h}"] = (time.perf_counter() - t) * 1e3
+        stamps = [block.header.time_ns + 1_000_000 * (i + 1)
+                  for i in range(st.validators.size())]
+        chain["last"] = commits.sign_commit(
+            signer, seed_of, st.validators, EVIDENCE_CHAIN_ID, h, bid,
+            stamps)
+        block_store.save_block(block, parts, chain["last"])
+        return block
+
+    # the first batch of the phase calibrates (K11), as a node's first
+    # batch does
+    B._calibrated_threshold = None
+    V.reset_launches()
+    errors0 = B.stats["device_errors"]
+    t = time.perf_counter()
+    for h in range(1, EVIDENCE_HEIGHTS + 1):
+        apply(h)
+    chain_launches = dict(V.launches)
+    say(f"phase evidence: {EVIDENCE_HEIGHTS} heights of {EVIDENCE_TXS} txs "
+        f"over {EVIDENCE_VALIDATORS} validators applied in "
+        f"{time.perf_counter() - t:.1f} s with signing (apply_block ms "
+        f"{[round(steps[f'apply {h}'], 2) for h in range(1, 9)]}); launches "
+        f"{chain_launches} ({smi})")
+
+    # -- the evidence -------------------------------------------------------
+    t = time.perf_counter()
+    vals = {h: state_store.load_validators(h)
+            for h in range(1, EVIDENCE_HEIGHTS + 1)}
+    metas = {h: block_store.load_block_meta(h)
+             for h in range(1, EVIDENCE_HEIGHTS + 1)}
+    common, conflicting = LCA_LUNATIC
+    lunatic_set = ValidatorSet([new_validator(v.pub_key, 10) for v in
+                                vals[common].validators[:LCA_LUNATIC_SIGNERS]])
+
+    def attack(keyset, height, common_h, app_hash):
+        return commits.light_client_attack(
+            signer, EVIDENCE_CHAIN_ID, (keyset, seed_of), height, common_h,
+            t0_ns, vals[common_h].total_voting_power(),
+            metas[common_h].header.time_ns, app_hash)
+
+    lunatic = attack(lunatic_set, conflicting, common, b"\xee" * 32)
+    equivocation = attack(vals[LCA_EQUIVOCATION], LCA_EQUIVOCATION,
+                          LCA_EQUIVOCATION, b"\xdd" * 32)
+    forged = attack(vals[LCA_FORGED], LCA_FORGED, LCA_FORGED, b"\xcc" * 32)
+    fc = forged.conflicting_block.signed_header.commit
+    fc.signatures[LCA_BAD_IDX] = dataclasses.replace(
+        fc.signatures[LCA_BAD_IDX], signature=bytes(64))
+    # 18 distinct validators (53 is prime to the set's size)
+    items = [(2 + k % 6, (11 + 53 * k) % len(keys),
+              metas[2 + k % 6].header.time_ns)
+             for k in range(DUPLICATE_VOTES + 2)]
+    dves = commits.duplicate_vote_evidence(signer, seed_of, vals[1],
+                                           EVIDENCE_CHAIN_ID, items, rng)
+    bad_sig, bad_power = dves[DUPLICATE_VOTES:]
+    s = bad_sig.vote_b.signature
+    bad_sig.vote_b.signature = s[:5] + bytes([s[5] ^ 1]) + s[6:]
+    bad_power.validator_power = 11
+    cases = ([("lunatic", lunatic), ("equivocation", equivocation)]
+             + [(f"duplicate_vote {k}", e)
+                for k, e in enumerate(dves[:DUPLICATE_VOTES])]
+             + [("forged commit", forged), ("forged signature", bad_sig),
+                ("forged power", bad_power)])
+    say(f"phase evidence: {len(cases)} pieces of evidence signed in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    got, per_step = [], {}
+    for name, ev in cases:
+        before = dict(V.launches)
+        t = time.perf_counter()
+        got.append(_outcome(lambda: pool.add_evidence(ev)))
+        per_step[name] = ((time.perf_counter() - t) * 1e3,
+                          {k: V.launches[k] - before[k] for k in before
+                           if V.launches[k] != before[k]})
+    # the reference: the port's own verify_evidence on the host route, in
+    # the pool (a 1,000-signature commit is seconds of pure-Python verify)
+    t = time.perf_counter()
+    st = chain["state"]
+    ev_params = st.consensus_params.evidence
+    jobs = [(ev.wrapped(), EVIDENCE_CHAIN_ID, st.last_block_height,
+             st.last_block_time_ns,
+             (ev_params.max_age_num_blocks, ev_params.max_age_duration_ns,
+              ev_params.max_bytes),
+             {h: v.encode() for h, v in vals.items()},
+             {h: m.header.encode() for h, m in metas.items()})
+            for _, ev in cases]
+    want = signer.run(_evidence_outcome, jobs)
+    ref_s = time.perf_counter() - t
+    for (name, _), g, w in zip(cases, got, want):
+        if g != w:
+            raise AssertionError(f"evidence {name}: the card's verdict {g} "
+                                 f"!= the host route's {w}")
+    n_valid = len(cases) - 3
+    if any(g is not None for g in got[:n_valid]) or \
+            any(g is None for g in got[n_valid:]):
+        raise AssertionError(f"evidence verdicts: {got}")
+    for name, (ms, launched) in per_step.items():
+        if not name.startswith("duplicate_vote"):
+            say(f"phase evidence {name}: {ms:.2f} ms, launches {launched}; "
+                f"verdict {dict(zip([c[0] for c in cases], got))[name]}")
+    dv_ms = [per_step[f"duplicate_vote {k}"][0]
+             for k in range(DUPLICATE_VOTES)]
+    dv_launched = [per_step[f"duplicate_vote {k}"][1]
+                   for k in range(DUPLICATE_VOTES)]
+    if any(dv_launched):
+        raise AssertionError(f"a duplicate vote's two signatures went to "
+                             f"the device: {dv_launched}")
+    say(f"phase evidence: {DUPLICATE_VOTES} duplicate votes accepted, "
+        f"median {statistics.median(dv_ms):.2f} ms each on the host route "
+        f"(2 signatures, under the break-even threshold "
+        f"{B.device_threshold()}); every verdict equal to the host route's "
+        f"verify_evidence (the spawn pool, {ref_s:.1f} s)")
+
+    # -- the next height carries the pending evidence -----------------------
+    pending, _ = pool.pending_evidence(-1)
+    if len(pending) != n_valid:
+        raise AssertionError(f"pending evidence {len(pending)} != {n_valid}")
+    h = EVIDENCE_HEIGHTS + 1
+    st = chain["state"]
+    t = time.perf_counter()
+    block, parts = executor.create_proposal_block(
+        h, st, chain["last"], st.validators.get_proposer().address)
+    steps["propose"] = (time.perf_counter() - t) * 1e3
+    if sorted(e.hash() for e in block.evidence) != \
+            sorted(e.hash() for _, e in cases[:n_valid]):
+        raise AssertionError("the proposal does not carry the pending "
+                             "evidence")
+    before = dict(V.launches)
+    apply(h, block, parts)
+    committed = [pool.is_committed(e) and not pool.is_pending(e)
+                 for _, e in cases[:n_valid]]
+    if not all(committed) or pool.pending_evidence(-1)[0]:
+        raise AssertionError(f"evidence not committed: {committed}")
+    events = []
+    while not sub.queue.empty():
+        events.append(sub.queue.get_nowait())
+    kinds = [m.events[tme.EVENT_TYPE_KEY][-1] for m in events]
+    # height h's proposal reaps no txs (the executor's mempool is empty)
+    want_kinds = (["NewBlock", "NewBlockHeader"] + ["Tx"] * EVIDENCE_TXS) \
+        * EVIDENCE_HEIGHTS + ["NewBlock", "NewBlockHeader"] \
+        + ["NewEvidence"] * n_valid
+    if kinds != want_kinds or [m.data.evidence.hash() for m in events
+                               if m.events["tm.event"][-1] == "NewEvidence"
+                               ] != [e.hash() for e in block.evidence]:
+        raise AssertionError(f"events: {kinds}")
+    launches = dict(V.launches)
+    if B.stats["device_errors"] != errors0:
+        raise AssertionError(f"device errors: {B.stats}")
+    if launches["ed25519_verify_dense"] == 0 or launches["probe_sum_u8"] == 0:
+        raise AssertionError(f"phase evidence never launched K5/K11: "
+                             f"{launches}")
+    block_kb = len(parts.get_reader()) / 1e3
+    say(f"phase evidence: height {h} carries {n_valid} pieces of evidence "
+        f"({block_kb:.1f} kB block): propose {steps['propose']:.2f} ms, "
+        f"apply_block {steps[f'apply {h}']:.2f} ms (check_evidence finds "
+        f"them pending: launches {({k: launches[k] - before[k] for k in launches})}); "
+        f"all committed; the subscriber got {len(events)} events "
+        f"({kinds.count('NewEvidence')} NewEvidence, {kinds.count('Tx')} "
+        f"Tx, {kinds.count('NewBlock')} NewBlock) ({smi})")
+    say(f"phase evidence: launches on the main path {launches}")
+    per_lca = {n: per_step[n][1] for n in ("lunatic", "equivocation",
+                                           "forged commit")}
+    return {"launches": launches, "summary": {
+        "validators": EVIDENCE_VALIDATORS, "pieces": len(cases),
+        "lca_launches": per_lca,
+        "lca_ms": {n: per_step[n][0] for n in per_lca},
+        "duplicate_vote_median_ms": statistics.median(dv_ms),
+        "apply_ms": {k: v for k, v in steps.items()}, "card": smi}}
+
+
+def record_stream_check(dev) -> dict:
+    """ROADMAP §3 item 2 on the card: K7 reads a key buffer from
+    ``_device_cached`` on a side stream (busy first, so the read comes
+    late) while the default stream evicts it (32 new keys fill the cache)
+    and allocates and overwrites tensors of its size. Run twice, with
+    ``Tensor.record_stream`` and with it made a no-op. The default
+    stream's pool is first filled up to a fresh segment, so the freed
+    block is the only free block of its size there and the next
+    allocation of that size takes it unless ``record_stream`` holds it
+    back. With it: the block is not reused and the verdicts equal the
+    plain version's. Without it: the block is reused by the next key and
+    the verdicts differ. Raises unless both hold and the side stream was
+    busy at the overwrite in both runs."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.crypto import ed25519 as ed
+    from tendermint_tpu_torch.crypto.ed25519_cuda import curve
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+
+    rng = np.random.default_rng(SEED + 13)
+    base = bytes(rng.integers(0, 256, 110, dtype=np.uint8))
+    pks, msgs, sigs = [], [], []
+    for i in range(24):
+        priv, pub = ed.keygen(bytes([i + 1]) * 32)
+        m = bytearray(base)
+        m[50], m[77] = i, (3 * i) % 256
+        sig = ed.sign(priv, bytes(m))
+        if i % 5 == 2:
+            sig = sig[:9] + bytes([sig[9] ^ 1]) + sig[10:]
+        pks.append(pub)
+        msgs.append(bytes(m))
+        sigs.append(sig)
+    packed = V.pack_sparse(pks, msgs, sigs, 8)
+    pk_arr = packed[5]
+    table = curve.base_table(dev)
+    fresh = [torch.from_numpy(np.array(x)).to(dev) for x in packed[:7]]
+    want = V.verify_sparse_plain(*fresh, 8, table).cpu().tolist()
+    spec = [ed.verify(*c) for c in zip(pks, msgs, sigs)]
+    if [a and b for a, b in zip(want[:24], packed[7])] != spec:
+        raise AssertionError("record_stream check: plain != spec")
+    del fresh
+
+    def fill_default_pool() -> list:
+        # allocations of the key buffer's size on the default stream until
+        # the allocator takes a new segment: no free block of that size is
+        # left in the default stream's pool before the buffer is made
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # also settles every pending stream event
+        held, reserved = [], torch.cuda.memory_reserved(dev)
+        while torch.cuda.memory_reserved(dev) == reserved:
+            held.append(torch.empty(pk_arr.nbytes, dtype=torch.uint8,
+                                    device=dev))
+            if len(held) > 4_000_000:
+                raise AssertionError("record_stream check: the default "
+                                     "pool never took a new segment")
+        return held
+
+    def once(keep_record: bool):
+        orig = torch.Tensor.record_stream
+        if not keep_record:
+            torch.Tensor.record_stream = lambda self, stream: None
+        try:
+            V._PK_DEVICE_CACHE.clear()
+            side = torch.cuda.Stream(dev)
+            # warm the side stream's pool and the pinned host blocks of
+            # these sizes: a cudaMalloc or cudaHostAlloc in the raced part
+            # would synchronize the device and close the race window
+            with torch.cuda.stream(side):
+                warm, _ = V.prepare_sparse_stream(pks, msgs, sigs, 8,
+                                                  device=dev)
+                warm_out = V.verify_sparse(*warm, 8, table)
+            side.synchronize()
+            del warm, warm_out
+            V._PK_DEVICE_CACHE.clear()
+            held = fill_default_pool()
+            # the key buffer, allocated on the default stream
+            ptr = V._device_cached(pk_arr, dev).data_ptr()
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(RS_SLEEP_CYCLES)
+                args, _ = V.prepare_sparse_stream(pks, msgs, sigs, 8,
+                                                  device=dev)  # a hit
+                out = V.verify_sparse(*args, 8, table)
+            del args
+            for i in range(V._PK_CACHE_MAX):  # evicts the key buffer
+                V._device_cached(np.full_like(pk_arr, i + 1), dev)
+            junk = [torch.full((pk_arr.nbytes,), 0xA5, dtype=torch.uint8,
+                               device=dev) for _ in range(64)]
+            busy = not side.query()
+            after = [t.data_ptr() for t in V._PK_DEVICE_CACHE.values()]
+            after += [t.data_ptr() for t in junk]
+            side.synchronize()
+        finally:
+            torch.Tensor.record_stream = orig
+        reused = any(p < ptr + pk_arr.nbytes and ptr < p + pk_arr.nbytes
+                     for p in after)
+        del junk, held
+        V._PK_DEVICE_CACHE.clear()
+        return out.cpu().tolist() == want, busy, reused
+
+    equal, busy, reused = once(True)
+    equal_without, busy_without, reused_without = once(False)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out = {"equal": equal, "side_busy": busy, "reused": reused,
+           "equal_without_record_stream": equal_without,
+           "side_busy_without": busy_without,
+           "reused_without_record_stream": reused_without}
+    say(f"record_stream check: K7 on a side stream over a cached key buffer "
+        f"evicted from the default stream: with record_stream the block "
+        f"was {'REUSED' if reused else 'not reused'} while the side stream "
+        f"ran (busy {busy}) and the verdicts "
+        f"{'equal' if equal else 'DIFFER FROM'} the plain version's; with "
+        f"record_stream a no-op the block was "
+        f"{'reused' if reused_without else 'NOT REUSED'} (busy "
+        f"{busy_without}) and the verdicts "
+        f"{'STILL EQUAL' if equal_without else 'differ'}")
+    if not (busy and busy_without):
+        raise AssertionError(f"record_stream check: the side stream was "
+                             f"idle before the overwrite: {out}")
+    if reused or not equal:
+        raise AssertionError(f"record_stream check: K7 read an evicted, "
+                             f"reused key buffer: {out}")
+    if not reused_without or equal_without:
+        raise AssertionError(f"record_stream check: without record_stream "
+                             f"the race did not show: {out}")
+    return out
+
+
+def run_votes(dev, smi: str, signer, keys) -> dict:
+    """Phase votes: a prevote and a precommit round of all ``keys``
+    (10,240 validators, every VOTE_INVALID_EVERY-th signature invalid)
+    through a ``BatchVoteVerifier`` at the JAX package's defaults,
+    preverified by VOTE_PEERS peer tasks in a seeded order, then a
+    ``VoteSet`` whose verifier is the batcher adds every vote; then an
+    armed ``device.vote_flush`` and the record_stream check. Returns the
+    kernels' launches and a summary. Raises on any failed check."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto import vote_batcher as VB
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.libs.faults import InjectedFault, faults
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types import (BlockID, PartSetHeader,
+                                            SignedMsgType, ValidatorSet,
+                                            VoteSet, new_validator)
+    from tendermint_tpu_torch.types.errors import ErrVoteInvalidSignature
+    from tendermint_tpu_torch.types.vote import Vote
+
+    tdevice.set_default_device(dev)
+    os.environ.pop("TMTPU_BATCH_BACKEND", None)
+    rng = np.random.default_rng(SEED + 11)
+    t = time.perf_counter()
+    seed_of = {pk.address(): sd for pk, sd in keys}
+    valset = ValidatorSet([new_validator(pk, 10) for pk, _ in keys])
+    n = valset.size()
+    bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+    base_ns = commits.BASE_TIME_S * 10**9 + VOTE_HEIGHT * 10**9
+    kinds = (SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT)
+    votes = {k: [Vote(k, VOTE_HEIGHT, 0, bid,
+                      base_ns + 1_000 * i + 500 * int(k == kinds[1]),
+                      v.address, i)
+                 for i, v in enumerate(valset.validators)] for k in kinds}
+    # validator-major: a worker derives each key once for both votes
+    jobs = [(seed_of[valset.validators[i].address],
+             votes[k][i].sign_bytes(VOTE_CHAIN_ID))
+            for i in range(n) for k in kinds]
+    sigs = iter(signer.sign(jobs))
+    for i in range(n):
+        for k in kinds:
+            sig = next(sigs)
+            if i % VOTE_INVALID_EVERY == 0:
+                sig = sig[:32] + bytes(32)
+            votes[k][i].signature = sig
+    rows = {k: [(valset.validators[i].pub_key,
+                 votes[k][i].sign_bytes(VOTE_CHAIN_ID), votes[k][i].signature)
+                for i in range(n)] for k in kinds}
+    say(f"phase votes: {2 * n} votes of {n} validators signed in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    bv = VB.BatchVoteVerifier()
+    flushes = []
+    run_flush = bv._run_flush
+
+    async def counted(batch):
+        flushes.append(len(batch))
+        return await run_flush(batch)
+
+    bv._run_flush = counted
+
+    async def peer(items):
+        # the reactor's receive: one detached preverify task a vote
+        tasks = []
+        for i, (pub, msg, sig) in items:
+            tasks.append((i, asyncio.ensure_future(
+                bv.preverify(pub, msg, sig))))
+            await asyncio.sleep(0)
+        return [(i, await f) for i, f in tasks]
+
+    async def round_(items):
+        order = rng.permutation(n)
+        per_peer = [[(int(i), items[int(i)]) for i in order[p::VOTE_PEERS]]
+                    for p in range(VOTE_PEERS)]
+        out = [None] * n
+        for part in await asyncio.gather(*(peer(x) for x in per_peer)):
+            for i, ok in part:
+                out[i] = ok
+        return out
+
+    V.reset_launches()
+    errors0 = B.stats["device_errors"]
+    verdicts, summary = {}, {"rounds": {}}
+    with _LaunchLog() as log:
+        for k in kinds:
+            label = k.name.lower()
+            f0, st0 = len(flushes), dict(bv.stats)
+            launches0 = dict(V.launches)
+            # the precommit round runs under torch.profiler (device
+            # activity only): the card's busy time over the round's wall
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) \
+                if k == kinds[1] else None
+            if prof is not None:
+                prof.start()
+            t = time.perf_counter()
+            verdicts[k] = asyncio.run(round_(rows[k]))
+            wall = time.perf_counter() - t
+            busy_ms = None
+            if prof is not None:
+                prof.stop()
+                busy_ms = _device_busy_ms(prof)
+            sizes = flushes[f0:]
+            dev_sizes = [x for x in sizes if x >= bv.min_device_batch]
+            d = {s: bv.stats[s] - st0.get(s, 0) for s in bv.stats}
+            k5 = V.launches["ed25519_verify_dense"] - \
+                launches0["ed25519_verify_dense"]
+            if (sum(sizes) != n or d.get("device_batches", 0) != len(dev_sizes)
+                    or d.get("device_sigs", 0) != sum(dev_sizes)
+                    or d.get("host_sigs", 0) != n - sum(dev_sizes)
+                    or d.get("device_errors", 0) or k5 != len(dev_sizes)
+                    or V.launches["ed25519_verify_sparse"]):
+                raise AssertionError(
+                    f"votes {label}: flushes {sizes}, stats {d}, K5 {k5}, "
+                    f"launches {V.launches}")
+            rate = n / wall
+            busy = "" if prof is None else (
+                "; under torch.profiler: the card busy not measured (the "
+                "trace shows no device time)" if busy_ms is None else
+                f"; under torch.profiler: the card busy {busy_ms:.4f} ms "
+                f"= {100 * busy_ms / (wall * 1e3):.2f}% of the wall")
+            say(f"phase votes {label}: {n} votes preverified by "
+                f"{VOTE_PEERS} peers in {wall * 1e3:.2f} ms = {rate:.0f} "
+                f"votes/s; {len(sizes)} flushes ({len(dev_sizes)} on the "
+                f"device, one K5 launch each; sizes min {min(sizes)}, "
+                f"median {statistics.median(sizes)}, max {max(sizes)})"
+                f"{busy} ({smi})")
+            # the state machine's VoteSet next, as consensus does: every
+            # vote a cache hit (the cache keeps the newest 16,384 verdicts)
+            vset = VoteSet(VOTE_CHAIN_ID, VOTE_HEIGHT, 0, k, valset,
+                           verifier=bv)
+            st0 = dict(bv.stats)
+            refused = 0
+            t = time.perf_counter()
+            for v in votes[k]:
+                try:
+                    vset.add_vote(v)
+                except ErrVoteInvalidSignature:
+                    refused += 1
+            add_s = time.perf_counter() - t
+            hits = bv.stats["cache_hits"] - st0.get("cache_hits", 0)
+            host = bv.stats["sync_host_sigs"] - st0.get("sync_host_sigs", 0)
+            want_refused = verdicts[k].count(False)
+            if hits != n or host != 0 or refused != want_refused or \
+                    not vset.has_two_thirds_majority():
+                raise AssertionError(
+                    f"VoteSet {label}: hits {hits}, host {host}, refused "
+                    f"{refused} (want {want_refused})")
+            summary["rounds"][label] = {
+                "wall_ms": wall * 1e3, "votes_per_s": rate,
+                "flushes": len(sizes), "device_flushes": len(dev_sizes),
+                "flush_sizes": [min(sizes), statistics.median(sizes),
+                                max(sizes)], "add_vote_ms": add_s * 1e3,
+                "profiled": prof is not None, "device_busy_ms": busy_ms}
+            say(f"phase votes {label}: VoteSet.add_vote over {n} votes in "
+                f"{add_s * 1e3:.2f} ms, all cache hits (sync_host_sigs 0), "
+                f"{refused} refused as invalid, +2/3 reached")
+        recs = log.take()
+    bad = [r for r in recs if r["thread"] == "MainThread"]
+    if bad:
+        raise AssertionError(f"a flush launched from the event loop's "
+                             f"thread: {bad[:2]}")
+    say(f"phase votes: launches ran on {_sites(recs)}")
+
+    # -- the verdicts against the host spec ----------------------------------
+    t = time.perf_counter()
+    spec = signer.verify([(p.bytes(), m, s) for k in kinds
+                          for p, m, s in rows[k]])
+    spec_s = time.perf_counter() - t
+    if verdicts[kinds[0]] + verdicts[kinds[1]] != spec:
+        bad_i = [i for i, (a, b) in enumerate(zip(
+            verdicts[kinds[0]] + verdicts[kinds[1]], spec)) if a != b]
+        raise AssertionError(f"votes: verdicts differ from the spec at "
+                             f"{bad_i[:10]}")
+    say(f"phase votes: all {2 * n} verdicts equal Ed25519PubKey."
+        f"verify_signature ({spec.count(False)} invalid; the spec in the "
+        f"pool, {spec_s:.1f} s)")
+
+    # -- an armed device.vote_flush: every future of the flush raises -------
+    extra = [Vote(kinds[0], VOTE_HEIGHT, 1, bid, base_ns + 7 * i,
+                  v.address, i)
+             for i, v in enumerate(valset.validators[:VOTE_FAULT_VOTES])]
+    for v, sig in zip(extra, signer.sign(
+            [(seed_of[v.validator_address], v.sign_bytes(VOTE_CHAIN_ID))
+             for v in extra])):
+        v.signature = sig
+    items = [(valset.validators[v.validator_index].pub_key,
+              v.sign_bytes(VOTE_CHAIN_ID), v.signature) for v in extra]
+
+    async def preverify_all():
+        return await asyncio.gather(*(bv.preverify(*x) for x in items),
+                                    return_exceptions=True)
+
+    errs0 = bv.stats["device_errors"]
+    faults.configure("device.vote_flush*1")
+    try:
+        faulted = asyncio.run(preverify_all())
+    finally:
+        faults.reset()
+    keys_cached = [bv._key(p.bytes(), m, s) in bv._cache for p, m, s in items]
+    if not all(isinstance(r, InjectedFault) for r in faulted) or \
+            bv.stats["device_errors"] - errs0 != 1 or any(keys_cached):
+        raise AssertionError(f"armed vote flush: {faulted[:3]}, errors "
+                             f"{bv.stats['device_errors'] - errs0}, cached "
+                             f"{sum(keys_cached)}")
+    again = asyncio.run(preverify_all())
+    if again != [True] * len(items):
+        raise AssertionError(f"votes after the fault: {again}")
+    say(f"phase votes: armed device.vote_flush: all {len(items)} futures of "
+        f"the flush raised InjectedFault, device_errors 1, none cached; "
+        f"resubmitted, all verified on the card")
+    launches = dict(V.launches)
+    if B.stats["device_errors"] != errors0:
+        raise AssertionError(f"device errors: {B.stats}")
+    say(f"phase votes: launches on the main path {launches}")
+    summary["record_stream"] = record_stream_check(dev)
+    summary["card"] = smi
+    return {"launches": launches, "summary": summary}
+
+
+def run_ingest(dev, smi: str, signer, registry) -> dict:
+    """Phase ingest: INGEST_VALID signed txs from INGEST_SENDERS senders,
+    unsigned, bad-signature and malformed txs and resubmitted duplicates,
+    all broadcast at once through an ``IngestPipeline`` in front of a
+    ``ShardedMempool`` of INGEST_SIZE over the kvstore app; every response
+    held against the scalar path; the reap order; a commit of
+    INGEST_COMMIT txs and its recheck; an armed ``device.batch_verify``.
+    ``registry`` holds the CryptoMetrics wired through
+    ``set_crypto_metrics``. Returns the kernels' launches and a summary.
+    Raises on any failed check."""
+    import asyncio
+    import collections
+    import hashlib
+
+    import numpy as np
+
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.example.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.libs.faults import InjectedFault, faults
+    from tendermint_tpu_torch.libs.metrics import MempoolMetrics
+    from tendermint_tpu_torch.mempool.clist_mempool import (ErrTxInCache,
+                                                            MempoolError)
+    from tendermint_tpu_torch.mempool.ingest import (SIGNED, IngestPipeline,
+                                                     ShardedMempool,
+                                                     parse_signed_tx)
+    from tendermint_tpu_torch.tools import commits
+
+    tdevice.set_default_device(dev)
+    os.environ.pop("TMTPU_BATCH_BACKEND", None)
+    rng = np.random.default_rng(SEED + 12)
+    t = time.perf_counter()
+    seeds = commits.seeds(rng, INGEST_SENDERS)
+    pubs = signer.pubkeys(seeds)
+
+    def specs(n, tag, nonce0):
+        return [(i % INGEST_SENDERS, b"%s%05d=v%08d" % (tag, i, int(
+            rng.integers(0, 10**8))), nonce0 + i, int(rng.integers(0, 100)))
+            for i in range(n)]
+
+    signed = commits.signed_txs(
+        signer, seeds, pubs, specs(INGEST_VALID, b"k", 0)
+        + specs(INGEST_BAD_SIG, b"b", 10**6)
+        + specs(INGEST_FAULT_TXS, b"f", 2 * 10**6))
+    valid = signed[:INGEST_VALID]
+    bad = [tx[:-1] + bytes([tx[-1] ^ 1]) for tx in
+           signed[INGEST_VALID:INGEST_VALID + INGEST_BAD_SIG]]
+    fault_txs = signed[INGEST_VALID + INGEST_BAD_SIG:]
+    unsigned = [b"u%05d=%s" % (i, rng.bytes(6).hex().encode())
+                for i in range(INGEST_UNSIGNED)]
+    malformed = [b"stx1" + rng.bytes(int(rng.integers(0, 108)))
+                 for _ in range(INGEST_MALFORMED)]
+    dups = [valid[int(j)] for j in
+            rng.choice(INGEST_VALID, INGEST_DUPS, replace=False)]
+    pool_txs = valid + unsigned + bad + malformed + dups
+    arrivals = [pool_txs[int(i)] for i in rng.permutation(len(pool_txs))]
+    say(f"phase ingest: {len(arrivals)} broadcasts ({INGEST_VALID} signed by "
+        f"{INGEST_SENDERS} senders, {INGEST_UNSIGNED} unsigned, "
+        f"{INGEST_BAD_SIG} bad signatures, {INGEST_MALFORMED} malformed, "
+        f"{INGEST_DUPS} resubmitted) built in {time.perf_counter() - t:.1f} s")
+
+    def mempool():
+        return ShardedMempool(LocalClient(KVStoreApplication()),
+                              max_txs=INGEST_SIZE, cache_size=INGEST_CACHE)
+
+    # -- the scalar path, one tx at a time: verify_signed_tx_scalar's check
+    # (Ed25519PubKey.verify_signature, run in the pool), then check_tx
+    t = time.perf_counter()
+    distinct = sorted(set(arrivals))
+    stx = {tx: parse_signed_tx(tx) for tx in distinct}
+    signed_rows = [tx for tx in distinct if stx[tx][0] == SIGNED]
+    ok = signer.verify([(stx[tx][1].pubkey, stx[tx][1].sign_bytes,
+                         stx[tx][1].sig) for tx in signed_rows])
+    scalar = mempool()
+    for tx, v in zip(signed_rows, ok):
+        scalar.store_sig_verdict(hashlib.sha256(tx).digest(), bool(v))
+
+    def scalar_response(tx):
+        try:
+            r = scalar.check_tx(tx)
+            return r.code, r.log
+        except ErrTxInCache:
+            return 1, "tx already exists in cache"
+        except MempoolError as e:
+            return 1, str(e)
+
+    want = collections.defaultdict(collections.Counter)
+    for tx in arrivals:
+        want[tx][scalar_response(tx)] += 1
+    scalar_s = time.perf_counter() - t
+
+    # -- the pipeline ----------------------------------------------------------
+    mp = mempool()
+    m = MempoolMetrics(registry)
+    mp.metrics = m
+    batch_sizes = []
+
+    class _Sized(B.BatchVerifier):
+        def verify(self):
+            batch_sizes.append(len(self))
+            return super().verify()
+
+    pipe = IngestPipeline(mp, queue_limit=len(arrivals) + INGEST_FAULT_TXS,
+                          verifier_factory=lambda: _Sized(plane="ingest"))
+    pipe.metrics = m
+
+    async def broadcast(txs):
+        return await asyncio.gather(*(pipe.submit(tx) for tx in txs),
+                                    return_exceptions=True)
+
+    V.reset_launches()
+    stats0 = dict(B.stats)
+    with _LaunchLog() as log:
+        t = time.perf_counter()
+        res = asyncio.run(broadcast(arrivals))
+        wall = time.perf_counter() - t
+        recs = log.take()
+    raised = [r for r in res if isinstance(r, BaseException)]
+    if raised:
+        raise AssertionError(f"ingest: {len(raised)} broadcasts raised: "
+                             f"{raised[:3]}")
+    got = collections.defaultdict(collections.Counter)
+    for tx, r in zip(arrivals, res):
+        got[tx][(r.code, r.log)] += 1
+    if got != want:
+        diff = [tx for tx in want if got[tx] != want[tx]]
+        raise AssertionError(f"ingest: {len(diff)} txs answered unlike the "
+                             f"scalar path, e.g. {got[diff[0]]} != "
+                             f"{want[diff[0]]}")
+    entries = mp.entries_after(0)[0]
+    if mp.size() != INGEST_SIZE or {e.tx for e in entries} != \
+            {e.tx for e in scalar.entries_after(0)[0]}:
+        raise AssertionError(f"ingest: the mempool holds {mp.size()} txs")
+    reap = mp.reap_max_txs(-1)
+    if reap != [e.tx for e in sorted(entries,
+                                     key=lambda e: (-e.priority, e.seq))]:
+        raise AssertionError("ingest: reap is not (priority desc, arrival "
+                             "asc)")
+    launched = {k: v for k, v in V.launches.items() if v}
+    dev_batches = B.stats["device_batches"] - stats0["device_batches"]
+    host_batches = B.stats["host_batches"] - stats0["host_batches"]
+    codes = collections.Counter(r.code for r in res)
+    route = ("K5 (ed25519_verify_dense, one launch a batch)"
+             if set(launched) == {"ed25519_verify_dense"} else str(launched))
+    say(f"phase ingest: {len(arrivals)} broadcasts settled in "
+        f"{wall * 1e3:.2f} ms = {len(arrivals) / wall:.0f} txs/s; "
+        f"{pipe.stats['batches']} batches of {sorted(batch_sizes)[0]}-"
+        f"{sorted(batch_sizes)[-1]} signatures (median "
+        f"{statistics.median(batch_sizes)}) on {route}: {dev_batches} on the "
+        f"card, {host_batches} on the host; codes {dict(codes)}; every "
+        f"response equal to the scalar path's ({scalar_s:.1f} s, the spec "
+        f"in the pool); {mp.size()} resident, reap (priority desc, arrival "
+        f"asc) ({smi})")
+    say(f"phase ingest: launches ran on {_sites(recs)}")
+    if dev_batches == 0 or V.launches["ed25519_verify_dense"] + \
+            V.launches["ed25519_verify_sparse"] < dev_batches:
+        raise AssertionError(f"ingest: device batches {dev_batches}, "
+                             f"launches {V.launches}")
+
+    # -- a commit of INGEST_COMMIT: recheck rides the verdict cache ----------
+    block = reap[:INGEST_COMMIT]
+    sigs0 = (B.stats["device_sigs"], B.stats["host_sigs"])
+    scalar0 = m.preverified_txs_total.value("scalar")
+    hits0 = m.preverify_cache_hits_total.value("recheck")
+    t = time.perf_counter()
+    mp.lock()
+    try:
+        mp.update(2, block, [abci.ResponseDeliverTx(code=0)] * len(block))
+    finally:
+        mp.unlock()
+    update_ms = (time.perf_counter() - t) * 1e3
+    signed_left = sum(1 for e in mp.entries_after(0)[0]
+                      if parse_signed_tx(e.tx)[0] == SIGNED)
+    hits = m.preverify_cache_hits_total.value("recheck") - hits0
+    if mp.size() != INGEST_SIZE - INGEST_COMMIT or hits != signed_left or \
+            (B.stats["device_sigs"], B.stats["host_sigs"]) != sigs0 or \
+            m.preverified_txs_total.value("scalar") != scalar0:
+        raise AssertionError(f"ingest update: size {mp.size()}, recheck "
+                             f"hits {hits} of {signed_left} signed")
+    say(f"phase ingest: update after a commit of {len(block)} txs in "
+        f"{update_ms:.2f} ms: {mp.size()} rechecked by the app, {hits} "
+        f"signatures served from the verdict cache, none verified again")
+
+    # -- an armed device.batch_verify: each broadcast of the flush raises ----
+    errs0 = pipe.stats["device_errors"]
+    size0 = mp.size()
+    faults.configure("device.batch_verify*1")
+    try:
+        faulted = asyncio.run(broadcast(fault_txs))
+    finally:
+        faults.reset()
+    keys = [hashlib.sha256(tx).digest() for tx in fault_txs]
+    if not all(isinstance(r, InjectedFault) for r in faulted) or \
+            pipe.stats["device_errors"] - errs0 != 1 or mp.size() != size0 \
+            or any(k in mp.sig_verdicts for k in keys) or \
+            pipe.queue_depth() != 0:
+        raise AssertionError(f"armed ingest flush: {faulted[:3]}, size "
+                             f"{mp.size()}, queue {pipe.queue_depth()}")
+    again = asyncio.run(broadcast(fault_txs))
+    if [r.code for r in again] != [0] * len(fault_txs) or \
+            mp.size() != size0 + len(fault_txs):
+        raise AssertionError(f"ingest resubmission: {again[:3]}")
+    say(f"phase ingest: armed device.batch_verify: all {len(fault_txs)} "
+        f"broadcasts of the flush raised InjectedFault, device_errors 1, "
+        f"nothing stored or admitted; resubmitted, all admitted "
+        f"({mp.size()} resident)")
+    routes = [line for line in registry.render().splitlines()
+              if line.startswith("tendermint_crypto_routing_decisions_total")]
+    say("phase evidence + votes + ingest, crypto_routing_decisions_total by "
+        "route and plane: " + "; ".join(r.split("_total", 1)[1]
+                                         for r in routes))
+    launches = dict(V.launches)
+    say(f"phase ingest: launches on the main path {launches}")
+    return {"launches": launches, "summary": {
+        "broadcasts": len(arrivals), "wall_ms": wall * 1e3,
+        "txs_per_s": len(arrivals) / wall, "batches": len(batch_sizes),
+        "batch_sizes": [min(batch_sizes), statistics.median(batch_sizes),
+                        max(batch_sizes)],
+        "device_batches": dev_batches, "host_batches": host_batches,
+        "update_ms": update_ms, "routes": routes, "card": smi}}
+
+
+def run_planes(dev, smi: str, signer, keys) -> dict:
+    """Phases evidence, votes and ingest with one CryptoMetrics registry
+    wired through ``set_crypto_metrics``; their launches summed."""
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.libs.metrics import CryptoMetrics, Registry
+
+    registry = Registry()
+    B.set_crypto_metrics(CryptoMetrics(registry))
+    out = {"launches": {}, "summary": {}}
+    try:
+        for name, fn, args in (
+                ("evidence", run_evidence, (keys[:EVIDENCE_VALIDATORS],)),
+                ("votes", run_votes, (keys,)),
+                ("ingest", run_ingest, (registry,))):
+            t = time.perf_counter()
+            res = fn(dev, smi, signer, *args)
+            s = time.perf_counter() - t
+            say(f"phase {name}: {s:.1f} s in all ({smi})")
+            res["summary"]["phase_s"] = s
+            out["summary"][name] = res["summary"]
+            for k, n in res["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+    finally:
+        B.set_crypto_metrics(None)
+    return out
+
+
 # --- 4b. sharded verify-and-tally (K8), the multi-device stream, the
 # device-profile stub kernels (P1-P3) and P4 -------------------------------
 
@@ -1387,6 +2333,18 @@ def _kernel_alone_ms(fn, dev, kernel: str, reps: int = 20):
     us = sum(getattr(ev, "self_device_time_total", 0)
              for ev in prof.key_averages() if kernel in ev.key)
     return us / 1e3 / reps if us > 0 else None
+
+
+def _device_busy_ms(prof):
+    """The device time (ms) of every kernel and copy in a stopped
+    torch.profiler trace; None when the trace shows no device time."""
+    import torch
+
+    us = sum(getattr(ev, "self_device_time_total", 0)
+             for ev in prof.key_averages()
+             if getattr(ev, "device_type", None)
+             == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us > 0 else None
 
 
 def _sass_chain(lib_path) -> dict:
@@ -2745,9 +3703,11 @@ def main() -> int:
         result = run(dev, smi, int32_peak, signer)
         sharded = run_sharded(dev, smi, int32_peak, signer,
                               result.pop("big_items"))
+        keys = result.pop("keys")
         t_light = time.perf_counter()
-        light = run_light(dev, smi, signer, result.pop("light_keys"))
+        light = run_light(dev, smi, signer, keys[:LIGHT_VALIDATORS])
         say(f"phase light: {time.perf_counter() - t_light:.1f} s in all")
+        planes = run_planes(dev, smi, signer, keys)
         sha_err = sha256_check(dev)
         apply = run_apply(dev, smi, signer)
         t_bls = time.perf_counter()
@@ -2755,8 +3715,10 @@ def main() -> int:
         bls = run_bls(dev, smi, int32_peak, max_sm_mhz, signer)
         bls_apply = run_bls_apply(dev, smi, signer)
         bls_s = time.perf_counter() - t_bls
-    for k in result["kernels"]:  # K5/K6, K7 and K11 on the light path
-        k["launches"] += light["launches"].get(k["name"], 0)
+    for k in result["kernels"]:  # K5/K6, K7 and K11 on the light path,
+        # the evidence pool, the vote batcher and the ingest plane
+        k["launches"] += light["launches"].get(k["name"], 0) + \
+            planes["launches"].get(k["name"], 0)
     result["kernels"] += sharded["kernels"]
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
@@ -2778,7 +3740,8 @@ def main() -> int:
                     "bls_verify_breakdown": bls["breakdown"],
                     "bls_apply_block": bls_apply["heights"],
                     "sharded": sharded["summary"],
-                    "light": light["summary"], "card": smi}))
+                    "light": light["summary"], **planes["summary"],
+                    "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ cannot be:
   decode the JAX package's ``ValidatorSet.encode()`` / ``Commit.encode()``
   / ``SignedHeader.encode()`` / ``LightBlock.encode()`` bytes (the same
   proto wire format) into the port's types;
+* :func:`evidence_from_reference` decodes an evidence item's
+  ``wrapped()`` bytes (the Evidence oneof envelope) into the port's
+  ``DuplicateVoteEvidence`` or ``LightClientAttackEvidence``;
 * :func:`base_table_from_reference` converts the JAX fixed-base table
   (``curve._build_base_table``: (64, 16, 3, 17) u32, 17 limbs of 15 bits)
   into the port's (64, 16, 3, 10) layout of 26/25-bit limbs.
@@ -20,6 +23,7 @@ import numpy as np
 
 from .crypto.ed25519_cuda import field as F
 from .types.block import Commit
+from .types.evidence import Evidence, decode_evidence
 from .types.light_block import LightBlock, SignedHeader
 from .types.validator_set import ValidatorSet
 
@@ -41,6 +45,10 @@ def signed_header_from_reference(encoded: bytes) -> SignedHeader:
 
 def light_block_from_reference(encoded: bytes) -> LightBlock:
     return LightBlock.decode(encoded)
+
+
+def evidence_from_reference(encoded: bytes) -> Evidence:
+    return decode_evidence(encoded)
 
 
 def base_table_from_reference(table: np.ndarray) -> np.ndarray:

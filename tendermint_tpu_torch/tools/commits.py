@@ -14,6 +14,12 @@ one 48-byte aggregate.
 LightBlocks for the light client (each header's time is the chain's start
 plus its height in seconds, like tests/test_light_client.py's builder),
 signed by seeded Ed25519 sets or aggregated by a BLS fixture's set.
+
+``duplicate_vote_evidence``, ``light_client_attack`` and ``signed_txs``
+build evidence of both kinds and ``stx1`` signed-tx envelopes
+(mempool/ingest.py) from seeded keys. ``Signer.verify`` runs the host
+spec over (pubkey, message, signature) rows in the pool, and
+``Signer.run`` any picklable function over items, one task each.
 """
 
 from __future__ import annotations
@@ -30,13 +36,16 @@ from ..crypto import bls12381 as bls
 from ..crypto import ed25519 as ed
 from ..crypto import schemes
 from ..libs.bits import BitArray
+from ..mempool.ingest import signed_tx_head
 from ..types import (BlockID, BlockIDFlag, PartSetHeader, SignedMsgType,
                      ValidatorSet)
 from ..types.block import AggregatedCommit, Commit, CommitSig, Header
+from ..types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
 from ..types.light_block import LightBlock, SignedHeader
 from ..types.params import SignatureParams
 from ..types.canonical import vote_sign_bytes
 from ..types.validator import new_validator
+from ..types.vote import Vote
 
 BASE_TIME_S = 1_760_000_000
 
@@ -57,6 +66,11 @@ def _sign_chunk(jobs: Sequence[Tuple[bytes, bytes]]) -> List[bytes]:
             priv = keys[seed] = ed.keygen(seed)[0]
         out.append(ed.sign(priv, msg))
     return out
+
+
+def _verify_chunk(rows: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
+    return [Ed25519PubKey(pk).verify_signature(msg, sig)
+            for pk, msg, sig in rows]
 
 
 def _bls_keygen_chunk(seeds: Sequence[bytes]) -> List[Tuple[bytes, bytes]]:
@@ -97,6 +111,16 @@ class Signer:
     def sign(self, jobs: Sequence[Tuple[bytes, bytes]]) -> List[bytes]:
         """jobs: (seed, message) pairs -> signatures."""
         return self._map(_sign_chunk, list(jobs))
+
+    def verify(self, rows: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
+        """(pubkey, message, signature) rows -> the host spec's verdicts
+        (``Ed25519PubKey.verify_signature``)."""
+        return self._map(_verify_chunk, list(rows))
+
+    def run(self, fn, items: Sequence) -> list:
+        """``fn`` (a picklable module-level function) over ``items``, one
+        pool task each, results in order."""
+        return list(self._pool.map(fn, items))
 
     def bls_keys(self, seeds: Sequence[bytes]) -> List[Tuple[bytes, bytes]]:
         """BLS key seeds -> (pubkey, proof of possession) pairs."""
@@ -336,3 +360,69 @@ def bls_light_chain(fixture: "BlsCommitFixture", heights: Sequence[int],
                                      block_id=last)
         blocks[h] = LightBlock(SignedHeader(hdr, commit), vs)
     return blocks
+
+
+# -- evidence and signed txs --------------------------------------------------
+
+def duplicate_vote_evidence(signer: Signer, seed_of: Dict[bytes, bytes],
+                            valset: ValidatorSet, chain_id: str,
+                            items: Sequence[Tuple[int, int, int]],
+                            rng: np.random.Generator
+                            ) -> List[DuplicateVoteEvidence]:
+    """One DuplicateVoteEvidence per ``(height, validator index, block time
+    ns)`` item: the validator's two round-0 precommits at that height for
+    two random block IDs, each stamped a second after the block time,
+    signed in one pass of the pool; the evidence carries the block's time
+    and orders its votes by block ID."""
+    pairs, jobs = [], []
+    for height, idx, block_ns in items:
+        val = valset.validators[idx]
+        pair = []
+        for _ in range(2):
+            bid = BlockID(bytes(rng.integers(0, 256, 32, dtype=np.uint8)),
+                          PartSetHeader(1, bytes(rng.integers(
+                              0, 256, 32, dtype=np.uint8))))
+            v = Vote(SignedMsgType.PRECOMMIT, height, 0, bid,
+                     block_ns + 10**9, val.address, idx)
+            pair.append(v)
+            jobs.append((seed_of[val.address], v.sign_bytes(chain_id)))
+        pairs.append(pair)
+    sigs = iter(signer.sign(jobs))
+    out = []
+    for (height, _idx, block_ns), (va, vb) in zip(items, pairs):
+        va.signature, vb.signature = next(sigs), next(sigs)
+        out.append(DuplicateVoteEvidence.new(va, vb, block_ns, valset))
+    return out
+
+
+def light_client_attack(signer: Signer, chain_id: str, keyset: KeySet,
+                        height: int, common_height: int, t0_ns: int,
+                        total_power: int, timestamp_ns: int,
+                        app_hash: bytes) -> LightClientAttackEvidence:
+    """Evidence of a light-client attack: a conflicting LightBlock at
+    ``height`` (a ``light_chain`` header with ``app_hash``, signed by every
+    member of ``keyset``) against the chain's common height. A common
+    height below ``height`` is a lunatic attack; equal to it, an
+    equivocation (the header must then hash to its commit's block ID, as
+    ``light_chain`` makes it). No byzantine validators are listed."""
+    cb = light_chain(signer, chain_id, lambda h: keyset, [height], t0_ns,
+                     app_hash=app_hash)[height]
+    return LightClientAttackEvidence(cb, common_height, [], total_power,
+                                     timestamp_ns)
+
+
+def signed_txs(signer: Signer, seeds_: Sequence[bytes],
+               pubs: Sequence[bytes],
+               specs: Sequence[Tuple[int, bytes, int, int]]) -> List[bytes]:
+    """``stx1`` envelopes (mempool/ingest.py ``signed_tx_head`` plus the
+    signature) for ``(sender index, payload, nonce, fee)`` specs, the sender
+    being ``seeds_[i]`` / ``pubs[i]``; signed in one pass of the pool,
+    sender-major so a worker derives each key once per chunk."""
+    heads = [signed_tx_head(pubs[i], payload, nonce, fee)
+             for i, payload, nonce, fee in specs]
+    order = sorted(range(len(specs)), key=lambda k: specs[k][0])
+    sigs = signer.sign([(seeds_[specs[k][0]], heads[k]) for k in order])
+    out = [b""] * len(specs)
+    for k, sig in zip(order, sigs):
+        out[k] = heads[k] + sig
+    return out

@@ -4,8 +4,6 @@ Byte-identical wire artifacts: canonical sign-bytes, header/commit/validator-set
 merkle hashes all match Tendermint v0.34.24 (reference types/canonical.go,
 types/block.go:440, types/validator.go:117). Time is integer unix-nanoseconds
 throughout (Go time.Time parity incl. the year-1 zero value).
-
-Not ported yet: the event bus and its events.
 """
 
 from .basic import (  # noqa: F401

@@ -61,10 +61,9 @@ class VoteSet:
                  verifier=None):
         if height == 0:
             raise ValueError("Cannot make VoteSet for height == 0, doesn't make sense")
-        # signature verifier seam: None = plain host scalar verify; an
-        # object with verify(pub_key, msg, sig) otherwise (the JAX
-        # package's crypto/vote_batcher.py BatchVoteVerifier, not ported
-        # yet, micro-batches there)
+        # signature verifier seam (crypto/vote_batcher.py): None = plain
+        # host scalar verify, BatchVoteVerifier = micro-batched device path
+        # with one-shot verdict cache fed by the reactor's preverification
         self.verifier = verifier
         self.chain_id = chain_id
         self.height = height

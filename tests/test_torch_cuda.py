@@ -267,6 +267,22 @@ def test_batch_verifier_on_card(_card):
     assert TV.launches["ed25519_verify_dense"] >= 1
 
 
+def test_device_cache_record_stream_survives_eviction(_card):
+    """ROADMAP §3 item 2: K7 reads a ``_device_cached`` key buffer on a
+    side stream (busy first, so the read comes late) while the default
+    stream evicts it, then allocates and overwrites tensors of its size.
+    With ``record_stream`` the freed block is not handed out while the
+    side stream runs and the verdicts equal the plain version's; with it
+    made a no-op the next allocation takes the block and the verdicts
+    differ (chip_smoke.py phase votes runs the same check)."""
+    out = chip_smoke.record_stream_check(_card)
+    assert out["side_busy"] and out["side_busy_without"]
+    assert out["equal"] and not out["reused"]
+    assert out["reused_without_record_stream"]
+    assert out["equal_without_record_stream"] is False
+    assert TV._PK_DEVICE_CACHE == {}
+
+
 def test_tally_kernel_matches_plain_and_spec(_card):
     """K8: verdicts and limb sums equal to the plain version, verdicts to
     the spec, and the sharded total over 1 and 4 shards of the card equal

@@ -98,7 +98,20 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.light.store",
                  "tendermint_tpu_torch.light.verifier",
                  "tendermint_tpu_torch.rpc",
-                 "tendermint_tpu_torch.rpc.json_enc"):
+                 "tendermint_tpu_torch.rpc.json_enc",
+                 "tendermint_tpu_torch.libs.pubsub",
+                 "tendermint_tpu_torch.types.events",
+                 "tendermint_tpu_torch.types.event_bus",
+                 "tendermint_tpu_torch.evidence",
+                 "tendermint_tpu_torch.evidence.verify",
+                 "tendermint_tpu_torch.evidence.pool",
+                 "tendermint_tpu_torch.crypto.vote_batcher",
+                 "tendermint_tpu_torch.libs.metrics",
+                 "tendermint_tpu_torch.libs.txlife",
+                 "tendermint_tpu_torch.mempool",
+                 "tendermint_tpu_torch.mempool.clist_mempool",
+                 "tendermint_tpu_torch.mempool.ingest",
+                 "tendermint_tpu_torch.abci.example.counter"):
         assert name in imported
 
 
