@@ -89,6 +89,26 @@ Phases, each reported on its own line:
    the reap order; a commit of 1,000 rechecks on the verdict cache; an
    armed ``device.batch_verify`` reaches each broadcast of its flush and
    a resubmission is admitted.
+4e. fastsync (``BASELINE.json`` config #5 at its width, 1,000 validators
+   of equal power, the light phase's keys; 64 blocks of 256 kvstore txs
+   plus the block that carries the last commit, one tx in eight on a key
+   another tx of its block also writes): a source node records every
+   height's app, results and validators hash; ``verify_commit_light_
+   batched`` over 4 windows of 16 (every outcome None; a copy of height
+   20's commit with signature #400 zeroed gives ``ErrWrongSignature`` at
+   the entry the host route gives; the first call calibrates with K11);
+   a fresh node replays the chain through ``BlockchainReactor`` under
+   ``execution.version`` v0 and v1 (``bench.py``'s pipeline drive: stage A
+   verifies both signature planes of a window in one ``BatchVerifier``
+   call, K7 in about two segments, from an executor thread one window
+   ahead; ``apply_block``'s ``verify_commit`` hits the precomputed
+   verdicts and launches nothing), each height's hashes equal the
+   source's, v1 re-executes its conflicts; the card's busy share of one
+   window under torch.profiler; then an armed ``device.batch_verify``
+   before the first window strikes no peer and redoes nothing (counted on
+   ``device_errors_total{reason="injected", plane="light"}``), and a block
+   with a flipped LastCommit signature from peer ``evil`` strikes it and
+   redoes the height; both syncs complete with the source's hashes.
 5. apply: block execution on a 150-validator chain with the Merkle kvstore
    app over an app state of 2^20 keys (BlockExecutor.apply_block ->
    validate_block -> verify_commit on the dense kernel; BeginBlock,
@@ -2263,6 +2283,476 @@ def run_planes(dev, smi: str, signer, keys) -> dict:
     return out
 
 
+# --- 4e. fast sync: the block pool, the blocksync reactor's two-plane
+# window precompute, and parallel block execution -------------------------
+
+FASTSYNC_CHAIN_ID = "chip-smoke-fastsync"
+FASTSYNC_VALIDATORS = 1000   # BASELINE.json config #5's set
+FASTSYNC_BLOCKS = 64         # synced (config #5: 10,000); +1 carries a commit
+FASTSYNC_TXS = 256           # kvstore txs a block
+FASTSYNC_CONFLICT_EVERY = 8  # one tx in eight rewrites a key of the block
+FASTSYNC_BAD_IDX = 400       # the zeroed / flipped signature: inside 2/3
+FASTSYNC_BAD_HEIGHT = 20     # the verification plane's forged commit
+FASTSYNC_TAMPER_AT = 8       # the block peer `evil` serves tampered
+
+
+def _fastsync_txs(rng, h):
+    """FASTSYNC_TXS kvstore txs; every FASTSYNC_CONFLICT_EVERY-th puts a
+    value that is not UTF-8 (a barrier-group tx under parallel execution)
+    on the key of an earlier plain tx of the block, so that v1 speculates
+    two groups onto one key and re-executes them."""
+    txs = []
+    for i in range(FASTSYNC_TXS):
+        if i % FASTSYNC_CONFLICT_EVERY == FASTSYNC_CONFLICT_EVERY - 1:
+            j = i - FASTSYNC_CONFLICT_EVERY + 1 + int(rng.integers(0, 6))
+            txs.append(b"f%d-%03d=\xff%s" % (h, j, rng.bytes(4)))
+        else:
+            txs.append(b"f%d-%03d=%s" % (h, i, rng.bytes(8).hex().encode()))
+    return txs
+
+
+def run_fastsync(dev, smi: str, signer, keys) -> dict:
+    """Phase fastsync: a chain of FASTSYNC_BLOCKS + 1 blocks of ``keys``
+    (the first FASTSYNC_VALIDATORS of the big commit, equal power), each
+    block FASTSYNC_TXS kvstore txs, built by a source node that records
+    every height's app, results and validators hash. Then the verification
+    plane (``verify_commit_light_batched`` over windows of VERIFY_WINDOW),
+    a replay from a fresh node through the blocksync reactor under
+    ``execution.version`` v0 and v1 (driven as ``bench.py``
+    ``bench_fast_sync_pipeline`` drives it), and two faults: an armed
+    ``device.batch_verify`` strikes nobody, a tampered block strikes its
+    peer. Returns the kernels' launches and a summary. Raises on any
+    failed check."""
+    import asyncio
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.abci.example.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.blockchain import reactor as R
+    from tendermint_tpu_torch.config import ExecutionConfig
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.libs.db import MemDB
+    from tendermint_tpu_torch.libs.faults import faults
+    from tendermint_tpu_torch.libs.metrics import CryptoMetrics, Registry
+    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.state import (BlockExecutor, StateStore,
+                                            state_from_genesis)
+    from tendermint_tpu_torch.state.execution import (EmptyEvidencePool,
+                                                      NoOpMempool)
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.types import (BlockID, GenesisDoc,
+                                            GenesisValidator)
+    from tendermint_tpu_torch.types.block import Block, Commit
+    from tendermint_tpu_torch.types.errors import ErrWrongSignature
+    from tendermint_tpu_torch.types.validator_set import \
+        verify_commit_light_batched
+
+    tdevice.set_default_device(dev)
+    want_dev = str(tdevice.default_device())
+    os.environ.pop("TMTPU_BATCH_BACKEND", None)
+    rng = np.random.default_rng(SEED + 12)
+    t0_ns = commits.BASE_TIME_S * 10**9
+    # 64-byte private keys: 64 heights of signing derive no key
+    seed_of = {pk.address(): sd + pk.bytes() for pk, sd in keys}
+    genesis = GenesisDoc(
+        chain_id=FASTSYNC_CHAIN_ID, genesis_time_ns=t0_ns,
+        validators=[GenesisValidator(pk, 10) for pk, _ in keys])
+    n_top = FASTSYNC_BLOCKS + 1
+
+    def fresh_node(version="v0"):
+        conns = AppConns(local_client_creator(KVStoreApplication()))
+        conns.start()
+        state = state_from_genesis(genesis)
+        state_store = StateStore(MemDB())
+        state_store.save(state)
+        block_store = BlockStore(MemDB())
+        execu = BlockExecutor(state_store, conns.consensus, NoOpMempool(),
+                              EmptyEvidencePool(), block_store,
+                              exec_config=ExecutionConfig(version=version))
+        return state, execu, block_store, conns
+
+    def hashes_of(state):
+        return (state.app_hash, state.last_results_hash,
+                state.validators.hash())
+
+    # -- the source chain: our own signatures are known-valid, so the
+    # source's apply_block checks each LastCommit against precomputed
+    # verdicts (setup only, as bench.py's source does). A height's commit
+    # is signed in the pool while the block applies.
+    t = time.perf_counter()
+    state, execu, _bs, conns = fresh_node()
+    blocks, source_hashes, known = {}, {}, {}
+    last = Commit(0, 0, BlockID(), [])
+    token = B.precomputed_verdicts.set(known)
+    with ThreadPoolExecutor(1) as side:
+        try:
+            for h in range(1, n_top + 1):
+                block, parts = state.make_block(
+                    h, _fastsync_txs(rng, h), last, [],
+                    state.validators.get_proposer().address)
+                bid = BlockID(block.hash(), parts.header())
+                vals = state.validators
+                stamps = [block.header.time_ns + 1_000_000 * (i + 1)
+                          for i in range(vals.size())]
+                signing = (side.submit(commits.sign_commit, signer,
+                                       seed_of, vals, FASTSYNC_CHAIN_ID, h,
+                                       bid, stamps) if h < n_top else None)
+                state, _ = execu.apply_block(state, bid, block)
+                source_hashes[h] = hashes_of(state)
+                blocks[h] = block
+                if signing is None:
+                    break
+                last = signing.result()
+                sbs = last.vote_sign_bytes_all(FASTSYNC_CHAIN_ID)
+                for v, sb, cs in zip(vals.validators, sbs, last.signatures):
+                    known[(v.pub_key.bytes(), sb, cs.signature)] = True
+        finally:
+            B.precomputed_verdicts.reset(token)
+            conns.stop()
+    wire = {h: b.encode() for h, b in blocks.items()}
+    n_sigs = FASTSYNC_VALIDATORS * FASTSYNC_BLOCKS
+    say(f"phase fastsync: a chain of {n_top} blocks of {FASTSYNC_TXS} txs "
+        f"over {FASTSYNC_VALIDATORS} validators ({n_sigs} signatures) "
+        f"built in {time.perf_counter() - t:.1f} s with signing")
+
+    def fresh_blocks():
+        # fresh objects: no memo of an earlier pass (sign bytes, part
+        # sets, header hashes) may leak into the next
+        return {h: Block.decode(w) for h, w in wire.items()}
+
+    launches = dict.fromkeys(MAIN_KERNELS, 0)
+    summary = {}
+
+    def take_launches():
+        got = {k: V.launches[k] for k in launches}
+        for k, n in got.items():
+            launches[k] += n
+        V.reset_launches()
+        return got
+
+    def check_sites(label, recs):
+        bad = [r for r in recs if r["device"] != want_dev
+               or f"cuda:{r['current_device']}" != want_dev]
+        if bad:
+            raise AssertionError(f"{label}: launches off {want_dev}: "
+                                 f"{bad[:3]}")
+        if any(r["thread"] == "MainThread" for r in recs):
+            raise AssertionError(f"{label}: a launch on the event loop's "
+                                 "thread (apply_block or an inline window)")
+        say(f"phase fastsync {label}: launches ran on {_sites(recs)}")
+
+    W = R.VERIFY_WINDOW
+    with _LaunchLog() as log:
+        # -- 1. the verification plane: one batched call a window; the
+        # first auto call of the phase calibrates (K11)
+        vblocks = fresh_blocks()
+        vals = state_from_genesis(genesis).validators
+        entries = []
+        for h in range(1, FASTSYNC_BLOCKS + 1):
+            blk = vblocks[h]
+            bid = BlockID(blk.hash(), blk.make_part_set().header())
+            entries.append((vals, FASTSYNC_CHAIN_ID, bid, h,
+                            vblocks[h + 1].last_commit))
+        B._calibrated_threshold = None
+        V.reset_launches()
+        log.take()
+        per_window, t_windows = [], []
+        for i in range(0, FASTSYNC_BLOCKS, W):
+            t = time.perf_counter()
+            res = verify_commit_light_batched(entries[i:i + W])
+            t_windows.append(time.perf_counter() - t)
+            if any(r is not None for r in res):
+                raise AssertionError(f"verification plane: window at "
+                                     f"{i + 1}: {res}")
+            per_window.append(take_launches())
+        recs = log.take()
+        plane_s = sum(t_windows)
+        say(f"phase fastsync verify plane: {FASTSYNC_BLOCKS} blocks in "
+            f"{len(per_window)} windows in {plane_s * 1e3:.2f} ms, "
+            f"{FASTSYNC_BLOCKS / plane_s:.1f} blocks/s, "
+            f"{n_sigs / plane_s:.0f} sigs/s (window ms "
+            f"{[round(x * 1e3, 2) for x in t_windows]}); launches a window "
+            f"{per_window}; kernel ms {sum(r['ms'] for r in recs):.4f}")
+        summary["verify_plane"] = {
+            "blocks_per_s": FASTSYNC_BLOCKS / plane_s,
+            "window_ms": [x * 1e3 for x in t_windows],
+            "launches": per_window}
+        # the forged commit: signature #FASTSYNC_BAD_IDX zeroed, against
+        # the host route on the same window alone
+        bad_pos = FASTSYNC_BAD_HEIGHT - 1
+        w0 = bad_pos - bad_pos % W
+        forged = list(entries[w0:w0 + W])
+        e = forged[bad_pos - w0]
+        commit = Commit.decode(e[4].encode())
+        commit.signatures[FASTSYNC_BAD_IDX] = dataclasses.replace(
+            commit.signatures[FASTSYNC_BAD_IDX], signature=bytes(64))
+        forged[bad_pos - w0] = e[:4] + (commit,)
+        got = verify_commit_light_batched(forged)
+        take_launches()
+        log.take()
+        os.environ["TMTPU_BATCH_BACKEND"] = "host"
+        try:
+            want = verify_commit_light_batched(forged)
+        finally:
+            os.environ.pop("TMTPU_BATCH_BACKEND", None)
+
+        def names(rs):
+            return [None if r is None else (type(r).__name__, str(r))
+                    for r in rs]
+
+        err = got[bad_pos - w0]
+        if (names(got) != names(want) or not isinstance(err, ErrWrongSignature)
+                or f"#{FASTSYNC_BAD_IDX}" not in str(err)
+                or sum(r is not None for r in got) != 1):
+            raise AssertionError(f"verification plane forged commit: "
+                                 f"{names(got)} against the host route's "
+                                 f"{names(want)}")
+        say(f"phase fastsync verify plane: the forged commit at height "
+            f"{FASTSYNC_BAD_HEIGHT} gives {type(err).__name__} ({err}) at "
+            f"entry {bad_pos - w0} of its window, as the host route does")
+
+        # -- 2. the reactor pipeline from a fresh node, v0 then v1
+        def replay(version, served=None, setup=None, on_fault=None,
+                   on_stall=None, profile_window=None,
+                   until=FASTSYNC_BLOCKS):
+            state, execu, block_store, conns = fresh_node(version)
+            reactor = R.BlockchainReactor(state, execu, block_store,
+                                          fast_sync=True)
+            reactor.pool = R.BlockPool(1)
+            served = served or {"src": fresh_blocks()}
+            got_hashes, redos, window_launches = {}, [], []
+            apply_block = execu.apply_block
+
+            def recorded_apply(st, bid, block):
+                out = apply_block(st, bid, block)
+                got_hashes[block.header.height] = hashes_of(out[0])
+                return out
+
+            execu.apply_block = recorded_apply
+            redo = reactor.pool.redo
+
+            def recorded_redo(height):
+                bad = redo(height)
+                redos.append((height, sorted(bad)))
+                return bad
+
+            reactor.pool.redo = recorded_redo
+
+            def feed():
+                while True:
+                    reqs = reactor.pool.schedule_requests()
+                    if not reqs:
+                        return
+                    for pid, h in reqs:
+                        reactor.pool.add_block(pid, served[pid][h])
+
+            if setup is not None:
+                setup(reactor, feed)
+            else:
+                reactor.pool.set_peer_range("src", 1, n_top)
+            prof = {}
+
+            async def drive():
+                n = 0
+                while reactor.blocks_synced < until:
+                    feed()
+                    before = reactor.blocks_synced
+                    n += 1
+                    try:
+                        if n == profile_window and dev.type == "cuda":
+                            with torch.profiler.profile(activities=[
+                                    torch.profiler.ProfilerActivity.CUDA]) \
+                                    as p:
+                                t = time.perf_counter()
+                                await reactor._process_window()
+                                torch.cuda.synchronize(dev)
+                                prof["wall_ms"] = \
+                                    (time.perf_counter() - t) * 1e3
+                            prof["busy_ms"] = _device_busy_ms(p)
+                        else:
+                            await reactor._process_window()
+                    except Exception as e:
+                        if on_fault is None:
+                            raise
+                        on_fault(reactor, e)
+                        continue
+                    window_launches.append(take_launches())
+                    if reactor.blocks_synced == before and (
+                            on_stall is None or not on_stall(reactor)):
+                        return
+
+            hits0 = B.stats["precomputed_batches"]
+            t = time.perf_counter()
+            try:
+                asyncio.run(drive())
+            finally:
+                conns.stop()
+            t_end = time.perf_counter()
+            hits = B.stats["precomputed_batches"] - hits0
+            # apply_block's own split: validate / execute / commit+persist
+            split = R.BlockchainReactor.exec_phase_breakdown(t, t_end)
+            return SimpleNamespace(reactor=reactor, hashes=got_hashes,
+                                   redos=redos, wall=t_end - t, prof=prof,
+                                   hits=hits,
+                                   window_launches=window_launches,
+                                   split={"validate_ms": split["pack_s"] * 1e3,
+                                          "execute_ms":
+                                          split["dispatch_s"] * 1e3,
+                                          "commit_persist_ms":
+                                          split["fetch_s"] * 1e3,
+                                          "blocks": split["segments"]})
+
+        def check_hashes(label, rep, heights):
+            bad = [h for h in heights
+                   if rep.hashes.get(h) != source_hashes[h]]
+            if bad:
+                raise AssertionError(f"{label}: hashes differ from the "
+                                     f"source at heights {bad[:5]}")
+
+        runs = {}
+        for version in ("v0", "v1"):
+            log.take()
+            rep = replay(version)
+            recs = log.take()
+            check_hashes(f"replay {version}", rep,
+                         range(1, FASTSYNC_BLOCKS + 1))
+            sb = rep.reactor.stage_breakdown()
+            if sb["pipelined_windows"] < 2:
+                raise AssertionError(f"replay {version}: {sb}")
+            check_sites(f"replay {version}", recs)
+            if dev.type == "cuda":
+                stage_a = [r for r in recs
+                           if r["kernel"] == "ed25519_verify_sparse"]
+                if len(stage_a) < len(rep.window_launches):
+                    raise AssertionError(
+                        f"replay {version}: K7 launched {len(stage_a)} "
+                        f"times over {len(rep.window_launches)} windows")
+            par = rep.reactor.block_exec._parallel
+            runs[version] = rep
+            say(f"phase fastsync replay {version}: {FASTSYNC_BLOCKS} "
+                f"blocks in {rep.wall * 1e3:.2f} ms, "
+                f"{FASTSYNC_BLOCKS / rep.wall:.2f} blocks/s; stages "
+                f"{ {k: (round(v, 4) if isinstance(v, float) else v) for k, v in sb.items()} }"
+                f"; apply_block split "
+                f"{ {k: round(v, 2) for k, v in rep.split.items()} }"
+                f"; launches a _process_window call (its own window if "
+                f"inline, the next window's stage A) {rep.window_launches}"
+                f"; kernel ms {sum(r['ms'] for r in recs):.4f}; none on the "
+                f"event loop's thread (apply_block's verify_commit: "
+                f"{rep.hits} batches served by precomputed verdicts)"
+                + (f"; last block: {par.last_groups} groups, "
+                   f"{par.last_conflicted} txs re-executed"
+                   if par is not None else ""))
+            summary[f"replay_{version}"] = {
+                "blocks_per_s": FASTSYNC_BLOCKS / rep.wall,
+                "stages": sb, "apply_split": rep.split,
+                "window_launches": rep.window_launches}
+        v1_par = runs["v1"].reactor.block_exec._parallel
+        if v1_par is None or v1_par.last_conflicted == 0:
+            raise AssertionError("replay v1: no conflict was re-executed")
+        say(f"phase fastsync exec stage: v1 "
+            f"{runs['v1'].reactor.stage_breakdown()['abci_s'] * 1e3:.2f} ms "
+            f"beside v0 "
+            f"{runs['v0'].reactor.stage_breakdown()['abci_s'] * 1e3:.2f} ms "
+            f"over {FASTSYNC_BLOCKS} blocks")
+
+        # -- 3. faults on the card. An armed device.batch_verify before the
+        # first window: the pool routine's rule, nobody struck
+        registry = Registry()
+        B.set_crypto_metrics(CryptoMetrics(registry))
+        faults_seen = []
+
+        def on_fault(reactor, e):
+            faults_seen.append(e)
+            reactor._on_window_device_fault(e)  # the pool routine's rule
+
+        try:
+            faults.configure("device.batch_verify*1")
+            # its third _process_window call (the fault, window 1 retried,
+            # then window 2 applied as window 3 is prepared) is profiled
+            rep = replay("v0", on_fault=on_fault, profile_window=3)
+            faults.reset()
+            errs = B.metrics.device_errors_total.value("injected", "light")
+        finally:
+            faults.reset()
+            B.set_crypto_metrics(None)
+        take_launches()
+        log.take()
+        struck = [p for p, s in rep.reactor.scoreboard.snapshot().items()
+                  if s["total_failures"]]
+        if (len(faults_seen) != 1 or errs != 1 or struck or rep.redos
+                or rep.reactor.metrics.sync_retries_total.value()):
+            raise AssertionError(f"armed fault: {faults_seen} counted {errs}"
+                                 f", struck {struck}, redos {rep.redos}")
+        check_hashes("armed fault", rep, range(1, FASTSYNC_BLOCKS + 1))
+        busy = rep.prof.get("busy_ms")
+        share = (f"{busy:.4f} of {rep.prof['wall_ms']:.2f} ms, "
+                 f"{100 * busy / rep.prof['wall_ms']:.2f}%"
+                 if busy is not None else "not measured")
+        summary["busy_ms"] = busy
+        summary["profiled_window_ms"] = rep.prof.get("wall_ms")
+        say(f"phase fastsync armed device.batch_verify: {faults_seen[0]!r} "
+            f"before the first window; device_errors_total{{reason="
+            f"\"injected\", plane=\"light\"}} {errs:.0f}; nobody struck, "
+            f"nothing redone; the sync completed with the source's hashes "
+            f"in {rep.wall * 1e3:.2f} ms; the card busy in one window "
+            f"under torch.profiler: {share}")
+
+        # a block with a flipped LastCommit signature from peer `evil`
+        def tamper_setup(reactor, feed):
+            reactor.pool.set_peer_range("evil", FASTSYNC_TAMPER_AT,
+                                        FASTSYNC_TAMPER_AT)
+            feed()  # the tampered height goes to evil alone
+            reactor.pool.set_peer_range("src", 1, n_top)
+
+        evil = fresh_blocks()
+        cs = evil[FASTSYNC_TAMPER_AT].last_commit.signatures[FASTSYNC_BAD_IDX]
+        cs.signature = cs.signature[:7] + bytes([cs.signature[7] ^ 1]) + \
+            cs.signature[8:]
+        served = {"src": fresh_blocks(), "evil": evil,
+                  "src2": fresh_blocks()}
+
+        stalls = []
+
+        def another_source(reactor):
+            # the redo dropped every provider of the window: once, another
+            # honest peer reports in and the sync finishes from it
+            if stalls:
+                return False
+            stalls.append(reactor.blocks_synced)
+            reactor.pool.set_peer_range("src2", 1, n_top)
+            return True
+
+        # until the redone window has applied
+        rep = replay("v0", served=served, setup=tamper_setup,
+                     on_stall=another_source, until=2 * FASTSYNC_TAMPER_AT)
+        struck = sorted(p for p, s in
+                        rep.reactor.scoreboard.snapshot().items()
+                        if s["total_failures"])
+        redo_h = [h for h, _ in rep.redos]
+        if "evil" not in struck or redo_h != [FASTSYNC_TAMPER_AT - 1]:
+            raise AssertionError(f"tampered block: struck {struck}, redos "
+                                 f"{rep.redos}")
+        check_hashes("tampered block", rep,
+                     range(1, rep.reactor.blocks_synced + 1))
+        take_launches()
+        log.take()
+        say(f"phase fastsync tampered block from evil at height "
+            f"{FASTSYNC_TAMPER_AT}: redo at {redo_h[0]} after "
+            f"{stalls[0]} blocks, struck {struck}; src2 served the redone "
+            f"heights: {rep.reactor.blocks_synced} applied with the "
+            f"source's hashes")
+    summary["tamper"] = {"redo": redo_h, "struck": struck}
+    return {"launches": launches, "summary": summary}
+
+
 # --- 4b. sharded verify-and-tally (K8), the multi-device stream, the
 # device-profile stub kernels (P1-P3) and P4 -------------------------------
 
@@ -3708,6 +4198,11 @@ def main() -> int:
         light = run_light(dev, smi, signer, keys[:LIGHT_VALIDATORS])
         say(f"phase light: {time.perf_counter() - t_light:.1f} s in all")
         planes = run_planes(dev, smi, signer, keys)
+        t_fs = time.perf_counter()
+        fastsync = run_fastsync(dev, smi, signer, keys[:FASTSYNC_VALIDATORS])
+        fastsync["summary"]["phase_s"] = time.perf_counter() - t_fs
+        say(f"phase fastsync: {fastsync['summary']['phase_s']:.1f} s in all "
+            f"({smi})")
         sha_err = sha256_check(dev)
         apply = run_apply(dev, smi, signer)
         t_bls = time.perf_counter()
@@ -3716,9 +4211,10 @@ def main() -> int:
         bls_apply = run_bls_apply(dev, smi, signer)
         bls_s = time.perf_counter() - t_bls
     for k in result["kernels"]:  # K5/K6, K7 and K11 on the light path,
-        # the evidence pool, the vote batcher and the ingest plane
+        # the evidence pool, the vote batcher, the ingest plane and fast sync
         k["launches"] += light["launches"].get(k["name"], 0) + \
-            planes["launches"].get(k["name"], 0)
+            planes["launches"].get(k["name"], 0) + \
+            fastsync["launches"].get(k["name"], 0)
     result["kernels"] += sharded["kernels"]
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
@@ -3741,6 +4237,7 @@ def main() -> int:
                     "bls_apply_block": bls_apply["heights"],
                     "sharded": sharded["summary"],
                     "light": light["summary"], **planes["summary"],
+                    "fastsync": fastsync["summary"],
                     "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {

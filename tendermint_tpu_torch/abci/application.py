@@ -10,6 +10,24 @@ from . import types as abci
 
 
 class Application:
+    #: Optimistic parallel execution opt-in (state/parallel.py). An app
+    #: that sets this True must implement the speculation protocol:
+    #:
+    #: ``spec_read(space, key)`` — read committed state for one logical
+    #: key, with NO side effects (called concurrently, lock-free).
+    #: ``deliver_tx_on_view(tx, view)`` — the pure-speculation twin of
+    #: ``deliver_tx``: identical decision logic and response bytes, but
+    #: every state access goes through the view (``read`` / ``write`` /
+    #: ``emit`` / ``add``) instead of mutating the app.
+    #: ``apply_spec_ops(ops)`` — replay one tx's recorded op log against
+    #: real state (called under the app mutex, in block order).
+    #:
+    #: Invariant: for any tx and any state, ``deliver_tx_on_view`` +
+    #: ``apply_spec_ops`` must leave the app byte-identical (state, app
+    #: hash, response, events) to a plain ``deliver_tx`` — the parallel
+    #: executor differential-tests this but cannot prove it for you.
+    parallel_exec_supported = False
+
     # -- info/query connection --
     def info(self, req: abci.RequestInfo) -> abci.ResponseInfo:
         return abci.ResponseInfo()

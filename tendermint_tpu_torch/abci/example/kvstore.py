@@ -20,9 +20,9 @@ VALIDATOR_TX_PREFIX = "val:"
 
 
 class KVStoreApplication(Application):
-    """The speculation protocol of the JAX package's kvstore (spec_read /
-    deliver_tx_on_view / apply_spec_ops, for parallel execution) comes with
-    the port of state/parallel.py."""
+    #: speculation protocol below (spec_read / deliver_tx_on_view /
+    #: apply_spec_ops) — see abci/application.py for the contract
+    parallel_exec_supported = True
 
     def __init__(self):
         self.state: Dict[str, str] = {}
@@ -92,10 +92,65 @@ class KVStoreApplication(Application):
         return abci.ResponseDeliverTx(code=0, events=_tx_events(req.tx),
                                       gas_wanted=1, gas_used=1)
 
-    def _set_kv(self, k: str, v: str) -> None:
+    def _set_kv(self, k: str, v: str, vhash: Optional[bytes] = None) -> None:
         """Single store-write seam: MerkleKVStoreApplication hooks it for
-        value-hash caching + dirty-leaf tracking."""
+        value-hash caching + dirty-leaf tracking. ``vhash`` is sha256(v)
+        when the caller already computed it (the speculative path hashes
+        in parallel worker threads), else recomputed where needed."""
         self.state[k] = v
+
+    # -- optimistic parallel execution (state/parallel.py) -----------------
+
+    def spec_read(self, space: str, key: str):
+        if space == "kv":
+            return self.state.get(key)
+        if space == "val":
+            return self.validators.get(key)
+        return None
+
+    def deliver_tx_on_view(self, tx: bytes, view) -> abci.ResponseDeliverTx:
+        """deliver_tx's speculation twin: same decision logic and response
+        bytes, state effects recorded on the view instead of applied.
+        Value hashing happens HERE — in the speculating worker thread,
+        where hashlib releases the GIL for large values — so the serial
+        apply/commit path never recomputes it."""
+        if tx_is_validator_update(tx):
+            parsed = parse_validator_tx(tx)
+            if parsed is None:
+                return abci.ResponseDeliverTx(code=1,
+                                              log="malformed validator tx")
+            pubkey_hex, power = parsed
+            view.write("val", pubkey_hex, power)
+            # shared ordered stream: cross-group validator updates always
+            # conflict, so mixed-order val_updates are impossible
+            view.emit("vup", (pubkey_hex, power))
+        else:
+            raw = tx.decode("utf-8", errors="replace")
+            if "=" in raw:
+                k, v = raw.split("=", 1)
+            else:
+                k = v = raw
+            view.write("kv", k, v, extra=hashlib.sha256(v.encode()).digest())
+        view.add("tx_count", 1)
+        return abci.ResponseDeliverTx(code=0, events=_tx_events(tx),
+                                      gas_wanted=1, gas_used=1)
+
+    def apply_spec_ops(self, ops) -> None:
+        for op in ops:
+            kind = op[0]
+            if kind == "set":
+                _, space, key, value, extra = op
+                if space == "kv":
+                    self._set_kv(key, value, extra)
+                else:  # "val"
+                    self.validators[key] = value
+            elif kind == "emit":  # ("emit", "vup", (pubkey_hex, power))
+                pubkey_hex, power = op[2]
+                self.val_updates.append(abci.ValidatorUpdate(
+                    pub_key_type="ed25519",
+                    pub_key_bytes=bytes.fromhex(pubkey_hex), power=power))
+            else:  # ("add", "tx_count", n)
+                self.tx_count += op[2]
 
     def end_block(self, req: abci.RequestEndBlock) -> abci.ResponseEndBlock:
         return abci.ResponseEndBlock(validator_updates=list(self.val_updates))
@@ -265,9 +320,10 @@ class MerkleKVStoreApplication(SnapshotKVStoreApplication):
 
         self._imt = IncrementalMerkle()
 
-    def _set_kv(self, k: str, v: str) -> None:
+    def _set_kv(self, k: str, v: str, vhash: Optional[bytes] = None) -> None:
         self.state[k] = v
-        self._vhash[k] = hashlib.sha256(v.encode()).digest()
+        self._vhash[k] = vhash if vhash is not None \
+            else hashlib.sha256(v.encode()).digest()
         self._dirty.add(k)
 
     def _leaf_item(self, k: str) -> bytes:

@@ -1,10 +1,26 @@
-"""Node configuration. Only the light-serving plane's section is ported so
-far (``LightServeConfig``, read by ``light/serve.py`` ``LightServePlane``);
-the node's other sections come with the node."""
+"""Node configuration. Only two sections are ported so far:
+``ExecutionConfig`` (read by ``state/execution.py`` ``BlockExecutor``) and
+``LightServeConfig`` (read by ``light/serve.py`` ``LightServePlane``); the
+node's other sections come with the node."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class ExecutionConfig:
+    """Execution plane (state/execution.py + state/parallel.py). No
+    reference analog — tendermint executes DeliverTx serially; this build
+    grows an optimistic parallel path over it."""
+
+    # v1 = optimistic parallel block execution: conflict-grouped
+    # speculation + validation + serial re-execution of conflicts, with
+    # byte-identical outputs and automatic per-block fallback to serial
+    # (state/parallel.py); v0 = the serial spec path only
+    version: str = "v1"
+    workers: int = 4            # speculation thread pool width
+    min_parallel_txs: int = 2   # below this, serial is always cheaper
 
 
 @dataclass

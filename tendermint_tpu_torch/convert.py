@@ -9,6 +9,8 @@ cannot be:
   decode the JAX package's ``ValidatorSet.encode()`` / ``Commit.encode()``
   / ``SignedHeader.encode()`` / ``LightBlock.encode()`` bytes (the same
   proto wire format) into the port's types;
+* :func:`block_from_reference` decodes a ``Block.encode()`` (the blocks
+  a fast-sync replay carries);
 * :func:`evidence_from_reference` decodes an evidence item's
   ``wrapped()`` bytes (the Evidence oneof envelope) into the port's
   ``DuplicateVoteEvidence`` or ``LightClientAttackEvidence``;
@@ -22,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from .crypto.ed25519_cuda import field as F
-from .types.block import Commit
+from .types.block import Block, Commit
 from .types.evidence import Evidence, decode_evidence
 from .types.light_block import LightBlock, SignedHeader
 from .types.validator_set import ValidatorSet
@@ -41,6 +43,10 @@ def commit_from_reference(encoded: bytes) -> Commit:
 
 def signed_header_from_reference(encoded: bytes) -> SignedHeader:
     return SignedHeader.decode(encoded)
+
+
+def block_from_reference(encoded: bytes) -> Block:
+    return Block.decode(encoded)
 
 
 def light_block_from_reference(encoded: bytes) -> LightBlock:

@@ -33,6 +33,7 @@ import numpy as np
 
 from . import Ed25519PubKey, PubKey
 from . import phases as _phases
+from .breaker import count_device_error
 from ..device import KernelUnavailable
 from ..libs.faults import faults
 from ..libs.trace import tracer
@@ -217,8 +218,13 @@ class BatchVerifier:
             from .ed25519_cuda.verify import kernel_device
 
             # a card or kernel that cannot be used at all reaches the
-            # caller (KernelUnavailable) before anything is counted
-            kernel_device()
+            # caller (KernelUnavailable): on device_errors_total, not in
+            # stats, which count running kernels' faults
+            try:
+                kernel_device()
+            except KernelUnavailable as e:
+                count_device_error(e, self.plane)
+                raise
 
         non_ed_idx = {i: pk for i, pk in non_ed}
 
@@ -264,14 +270,16 @@ class BatchVerifier:
                     # by index
                     for i, pub in non_ed_idx.items():
                         out[i] = pub.verify_signature(msgs[i], sigs[i])
-                except KernelUnavailable:
+                except KernelUnavailable as e:
+                    count_device_error(e, self.plane)
                     raise
-                except Exception:
+                except Exception as e:
                     # a fault of a running kernel (at launch, or surfacing
                     # at the fetch), the armed fault site, or every lane of
                     # the multi-device pool failing: counted, and raised to
                     # the caller; nothing is re-verified on the host
                     stats["device_errors"] += 1
+                    count_device_error(e, self.plane)
                     raise
             else:
                 out = _host_verify()

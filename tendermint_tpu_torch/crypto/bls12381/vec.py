@@ -35,6 +35,7 @@ import torch
 
 from ...libs.faults import faults
 from .. import phases as _phases
+from ..breaker import count_device_error
 from ..bls12381_cuda import g2 as _g2
 from . import DST_SIG, decompress_pubkey
 from .curve import g2_to_affine, hash_to_g1
@@ -169,7 +170,11 @@ def _routed(pks: List[bytes], msg: bytes, sig: bytes, dst: bytes,
     if backend == "scalar":
         stats["scalar_calls"] += 1
         return fast_aggregate_verify(pks, msg, sig, dst=dst)
-    dev = _g2.kernel_device()
+    try:
+        dev = _g2.kernel_device()
+    except Exception as e:  # KernelUnavailable: not in stats
+        count_device_error(e, "aggsig")
+        raise
     n = len(pks)
     rec = _phases.Segment(sigs=n, chunk=n, device="bls-apk", plane="aggsig")
     try:
@@ -177,9 +182,10 @@ def _routed(pks: List[bytes], msg: bytes, sig: bytes, dst: bytes,
         rec.begin()
         apk = aggregate_pubkeys_vec(pks, dev, rec)
         rec.fetched()
-    except Exception:
+    except Exception as e:
         rec.abandon()
         stats["device_errors"] += 1
+        count_device_error(e, "aggsig")
         raise
     stats["device_calls"] += 1
     return _pairing_verdict(apk, msg, sig, dst)

@@ -6,17 +6,15 @@ the dispatch timeout or exception each time — because the fallback had no
 memory. Classic breaker state machine (Nygard, "Release It!"):
 
 * CLOSED     — device route allowed; N consecutive failures trip it OPEN.
-* OPEN       — zero device attempts; every batch routes straight to the
-               host scalar path until ``cooldown_s`` elapses.
+* OPEN       — zero device attempts until ``cooldown_s`` elapses.
 * HALF_OPEN  — after the cooldown, exactly ONE in-flight probe batch is
                allowed onto the device; success closes the breaker, failure
                re-opens it for another cooldown.
 
-Shared by ``crypto/batch.py`` (BatchVerifier) and
-``crypto/vote_batcher.py`` (the vote micro-batcher) through the module
-singleton ``device_breaker`` — a relay failure seen by one caller protects
-the other. Thread-safe: BatchVerifier runs on the apply-plane worker
-thread, the vote batcher on executor threads.
+The module singleton ``device_breaker`` stays, with its tests, but no
+route of the port reads it (see below). The lane
+breakers serve ``crypto/ed25519_cuda/multidevice.py``. Thread-safe: the
+lanes run on executor threads.
 
 Tuning: ``TMTPU_BREAKER_THRESHOLD`` (consecutive failures to trip,
 default 3), ``TMTPU_BREAKER_COOLDOWN_S`` (seconds OPEN before a probe,
@@ -24,14 +22,14 @@ default 30). State + transitions export via CryptoMetrics when the node
 wires ``set_breaker_metrics``.
 
 Per-device lanes: the multi-device dispatcher
-(``crypto/ed25519_jax/multidevice.py`` in the JAX package; not yet ported) keeps one breaker PER DEVICE via
-:func:`lane_breaker` (names ``device:<platform>:<id>``) so one sick chip
-degrades the pool to N-1 healthy lanes instead of collapsing the whole
-verification plane to host fallback. Lane knobs:
+(``crypto/ed25519_cuda/multidevice.py``) keeps one breaker PER DEVICE via
+:func:`lane_breaker` (names ``device:<platform>:<id>``) so one sick card
+degrades the pool to N-1 healthy lanes. Lane knobs:
 ``TMTPU_DEVICE_BREAKER_THRESHOLD`` / ``TMTPU_DEVICE_BREAKER_COOLDOWN_S``
-(falling back to the shared knobs above). Only when EVERY lane is sick
-does the failure surface to the caller — and then the shared
-``device_breaker`` takes over exactly as before.
+(falling back to the shared knobs above). When EVERY lane is sick the
+dispatcher raises ``AllLanesFailed`` to the caller. No route of the port
+reads the shared ``device_breaker``: a device fault reaches the caller,
+counted by :func:`count_device_error`, and nothing moves to the host.
 """
 
 from __future__ import annotations
@@ -252,14 +250,35 @@ def reset_lane_breakers() -> None:
 
 
 def classify_device_error(e: BaseException) -> str:
-    """reason label for device_fallbacks_total: injected / compile_error /
-    runtime_error (the cardinality-bounded taxonomy, not str(e))."""
+    """reason label of device_errors_total: unavailable / injected /
+    compile_error / runtime_error (the cardinality-bounded taxonomy, not
+    str(e))."""
+    from ..device import KernelUnavailable
     from ..libs.faults import InjectedFault
 
+    if isinstance(e, KernelUnavailable):
+        return "unavailable"
     if isinstance(e, InjectedFault):
         return "injected"
     name = type(e).__name__
     text = f"{name}: {e}".lower()
-    if "compil" in text or name in ("XlaCompilationError",):
+    if "compil" in text:
         return "compile_error"
     return "runtime_error"
+
+
+def count_device_error(e: BaseException, plane: str) -> None:
+    """Count a device fault that is about to reach the caller, once, on
+    ``crypto_device_errors_total{reason, plane}`` of the registry set by
+    ``crypto.batch.set_crypto_metrics`` (``plane``: votes, light,
+    evidence, ingest, aggsig or merkle), and mark it so that
+    ``device.is_device_fault`` knows it up the stack. A fault counted by
+    an inner site is not counted again by an outer one."""
+    from ..device import mark_device_fault
+    from . import batch
+
+    if not mark_device_fault(e):
+        return
+    m = batch.metrics
+    if m is not None:
+        m.device_errors_total.labels(classify_device_error(e), plane).inc()

@@ -108,6 +108,7 @@ def hash_from_byte_slices(items: Sequence[bytes]) -> bytes:
 import os as _os
 
 from . import merkle_fast as _mf
+from .breaker import count_device_error
 
 #: messages hashed by each route
 stats = {"hashlib": 0, "device": 0}
@@ -127,7 +128,13 @@ def _batch_sha256(msgs: List[bytes]) -> Optional[List[bytes]]:
             or len(msgs) < _env_int("TMTPU_MERKLE_DEVICE_MIN", 16384)):
         stats["hashlib"] += len(msgs)
         return None
-    out = _mf.sha256_many_device(msgs)
+    try:
+        out = _mf.sha256_many_device(msgs)
+    except Exception as e:
+        # a device fault reaches the caller, counted; nothing is hashed
+        # on the host in its place
+        count_device_error(e, "merkle")
+        raise
     stats["device"] += len(msgs)
     return out
 

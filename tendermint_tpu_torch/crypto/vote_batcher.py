@@ -48,6 +48,7 @@ from ..libs.faults import faults
 from ..libs.trace import tracer
 from . import batch as _batch  # module ref: reads the live metrics hook
 from . import phases as _phases
+from .breaker import count_device_error
 
 logger = logging.getLogger("tmtpu.votebatch")
 
@@ -155,6 +156,7 @@ class BatchVoteVerifier:
 
     def _fail(self, batch, exc: BaseException) -> None:
         self.stats["device_errors"] += 1
+        count_device_error(exc, "votes")
         for _, _, _, _, fut in batch:
             if not fut.done():
                 fut.set_exception(exc)

@@ -244,9 +244,11 @@ class Registry:
 
 
 # --- per-module metric sets (reference mempool/metrics.go etc.) -------------
-# Only the sets that the port's modules feed: the mempool and the
-# verification plane. The consensus, p2p, RPC, state, device, fault,
-# recovery, sync and node sets come with the node that wires them.
+# Only the sets that the port's modules feed: the mempool, the
+# verification plane, block execution (state/execution.py and
+# state/parallel.py) and fast sync (blockchain/reactor.py). The consensus,
+# p2p, RPC, device, fault, recovery, state-sync and node sets come with
+# the node that wires them.
 
 class MempoolMetrics:
     """(mempool/metrics.go — grown the ingestion-plane series a
@@ -363,9 +365,12 @@ class CryptoMetrics:
         self.routing_decisions_total = c(
             "crypto", "routing_decisions_total",
             "Batches routed per backend.", ["route", "plane"])
-        self.device_fallbacks_total = c(
-            "crypto", "device_fallbacks_total",
-            "Device-path batches re-verified on host.", ["reason"])
+        # the port re-verifies nothing on the host after a device fault
+        # (crypto/breaker.py count_device_error): each fault that reaches
+        # a caller counts here once, by its kind and the caller's plane
+        self.device_errors_total = c(
+            "crypto", "device_errors_total",
+            "Device faults raised to the caller.", ["reason", "plane"])
         self.precomputed_hits_total = c(
             "crypto", "precomputed_hits_total",
             "Batches served entirely from precomputed verdicts.", ["plane"])
@@ -388,3 +393,65 @@ class CryptoMetrics:
             "crypto", "breaker_transitions_total",
             "Circuit breaker state transitions.",
             ["breaker", "from", "to"])
+
+
+class StateMetrics:
+    """(state/metrics.go)"""
+
+    def __init__(self, reg: Registry):
+        self.block_processing_time = reg.histogram(
+            "state", "block_processing_time",
+            "Seconds in ApplyBlock.", buckets=(0.001, 0.005, 0.01, 0.025,
+                                               0.05, 0.1, 0.25, 0.5, 1.0))
+        # optimistic parallel execution plane (state/parallel.py)
+        self.parallel_exec_blocks = reg.counter(
+            "state", "parallel_exec_blocks_total",
+            "Blocks executed via the optimistic parallel path.")
+        self.parallel_exec_conflict_txs = reg.counter(
+            "state", "parallel_exec_conflict_txs_total",
+            "Txs serially re-executed after conflict validation.")
+        self.parallel_exec_fallbacks = reg.counter(
+            "state", "parallel_exec_fallbacks_total",
+            "Blocks that fell back to the serial spec path.",
+            labels=("reason",))
+
+
+class BlocksyncMetrics:
+    """The fast-sync apply plane (blockchain/reactor.py 2-deep pipeline)."""
+
+    STAGE_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5)
+
+    def __init__(self, reg: Registry):
+        g, c, h = reg.gauge, reg.counter, reg.histogram
+        self.stage_seconds = h(
+            "blocksync", "stage_seconds",
+            "Seconds per pipeline stage observation "
+            "(hash/verify per window, exec/store per block).", ["stage"],
+            buckets=self.STAGE_BUCKETS)
+        self.window_blocks = h(
+            "blocksync", "window_blocks",
+            "Blocks applied per verify window.",
+            buckets=(1, 2, 4, 8, 16, 32))
+        self.pipelined_windows_total = c(
+            "blocksync", "pipelined_windows_total",
+            "Windows whose stage A overlapped the previous apply.")
+        self.inline_windows_total = c(
+            "blocksync", "inline_windows_total",
+            "Windows verified inline (pipeline starved or first window).")
+        self.lookahead_stalls_total = c(
+            "blocksync", "lookahead_stalls_total",
+            "Iterations where the next window's blocks were not yet "
+            "downloaded when the lookahead wanted to start.")
+        self.stale_window_discards_total = c(
+            "blocksync", "stale_window_discards_total",
+            "Prepared windows discarded because the pool or validator set "
+            "moved underneath them.")
+        # -- adversarial resilience (libs/peerscore.py scoreboard) --------
+        self.peer_bans_total = c(
+            "blocksync", "peer_bans_total",
+            "Block-sync peers banned after repeated bad blocks/commits.",
+            ["reason"])
+        self.sync_retries_total = c(
+            "blocksync", "sync_retries_total",
+            "Block windows redone after a bad block from a peer.")

@@ -391,9 +391,12 @@ class VerifyCoalescer:
             # the flush's batched call raised (_verify_many catches each
             # request's own verdict): every request gets that exception,
             # and nothing is re-verified on the host
+            from ..crypto.breaker import count_device_error
+
             results, nsigs = [e] * len(reqs), 0
             faulted = True
             self.stats["device_errors"] += 1
+            count_device_error(e, "light")
         self.stats["batched_sigs"] += nsigs
         self.stats["verified_requests"] += len(reqs)
         for (req, futs), res in zip(groups, results):

@@ -17,6 +17,7 @@ Times are int nanoseconds; durations float seconds.
 
 from __future__ import annotations
 
+from ..device import is_device_fault
 from ..types.light_block import SignedHeader
 from ..types.validator_set import Fraction, ValidatorSet
 
@@ -91,6 +92,8 @@ def verify_adjacent(trusted: SignedHeader, untrusted: SignedHeader,
             trusted.header.chain_id, untrusted.commit.block_id,
             untrusted.header.height, untrusted.commit)
     except Exception as e:
+        if is_device_fault(e):
+            raise  # a fault of the card says nothing of the header
         raise ErrInvalidHeader(str(e)) from e
 
 
@@ -122,6 +125,8 @@ def verify_non_adjacent(trusted: SignedHeader, trusted_vals: ValidatorSet,
             trusted.header.chain_id, untrusted.commit.block_id,
             untrusted.header.height, untrusted.commit)
     except Exception as e:
+        if is_device_fault(e):
+            raise  # a fault of the card says nothing of the header
         raise ErrInvalidHeader(str(e)) from e
 
 

@@ -946,7 +946,10 @@ class IngestPipeline:
         """A flush whose batched call raised: each of its txs' futures
         gets the exception and each lifecycle record is sealed (outcome
         error) rather than left to be evicted as lost."""
+        from ..crypto.breaker import count_device_error
+
         self.stats["device_errors"] += 1
+        count_device_error(exc, "ingest")
         tl = self.mempool.txlife
         for item in batch:
             if tl is not None:

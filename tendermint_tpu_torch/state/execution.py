@@ -84,17 +84,28 @@ class BlockExecutor:
         self.evpool = evidence_pool
         self.block_store = block_store
         self.event_bus = event_bus
-        # execution.version: "v0"/None = the serial spec path; "v1"
-        # (optimistic parallel, state/parallel.py in the JAX package) is
-        # not ported yet
+        # execution.version: "v1" = optimistic parallel (state/parallel.py)
+        # with automatic serial fallback; "v0"/None = the serial spec path
         self.exec_config = exec_config
+        self._parallel = None
         if exec_config is not None and exec_config.version == "v1":
-            raise NotImplementedError(
-                "parallel block execution (execution.version v1): not yet "
-                "ported")
+            from .parallel import ParallelExecutor
+
+            self._parallel = ParallelExecutor(
+                workers=exec_config.workers,
+                min_parallel_txs=exec_config.min_parallel_txs)
 
     def _exec_block(self, block: Block, state: State) -> ABCIResponses:
-        """The execute stage: the serial spec."""
+        """The execute stage: parallel when configured AND eligible,
+        else the serial spec — outputs byte-identical either way."""
+        if self._parallel is not None:
+            if self.metrics is not None:
+                self._parallel.metrics = self.metrics
+            resp = self._parallel.try_exec_block(
+                self.proxy_app, block, self.state_store,
+                state.initial_height)
+            if resp is not None:
+                return resp
         return exec_block_on_proxy_app(
             self.proxy_app, block, self.state_store, state.initial_height)
 

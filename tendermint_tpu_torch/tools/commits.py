@@ -57,11 +57,12 @@ def _keygen_chunk(seeds: Sequence[bytes]) -> List[bytes]:
 def _sign_chunk(jobs: Sequence[Tuple[bytes, bytes]]) -> List[bytes]:
     # a key derivation costs a scalar multiplication, as a signature does:
     # derive each seed's key once per chunk (jobs that share a seed and sit
-    # next to each other sign at half the cost)
+    # next to each other sign at half the cost); a 64-byte key (seed ||
+    # public key) needs no derivation at all
     keys: Dict[bytes, bytes] = {}
     out = []
     for seed, msg in jobs:
-        priv = keys.get(seed)
+        priv = seed if len(seed) == ed.PRIVKEY_SIZE else keys.get(seed)
         if priv is None:
             priv = keys[seed] = ed.keygen(seed)[0]
         out.append(ed.sign(priv, msg))
@@ -109,7 +110,8 @@ class Signer:
         return self._map(_keygen_chunk, list(seeds))
 
     def sign(self, jobs: Sequence[Tuple[bytes, bytes]]) -> List[bytes]:
-        """jobs: (seed, message) pairs -> signatures."""
+        """jobs: (key, message) pairs -> signatures; a key is a 32-byte
+        seed or the 64-byte private key (seed || public key)."""
         return self._map(_sign_chunk, list(jobs))
 
     def verify(self, rows: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
@@ -151,7 +153,8 @@ def sign_commit(signer: Signer, seed_of: Dict[bytes, bytes],
                 block_id: BlockID, timestamps: Sequence[int]) -> Commit:
     """The commit of ``block_id`` at ``height`` in which every member of
     ``valset`` signed its precommit at its own timestamp; ``seed_of`` maps
-    a validator address to its key seed."""
+    a validator address to its key seed or its 64-byte private key (which
+    signs at half the cost: nothing is derived)."""
     jobs = [(seed_of[v.address],
              vote_sign_bytes(chain_id, SignedMsgType.PRECOMMIT, height, 0,
                              block_id, t))

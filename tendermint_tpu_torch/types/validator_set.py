@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..crypto.batch import BatchVerifier
+from ..device import is_device_fault
 from .basic import BlockID, BlockIDFlag
 from .errors import (
     ErrInvalidCommitHeight,
@@ -617,6 +618,8 @@ def verify_commit_light_batched(
                 val_set.verify_commit_light(chain_id, block_id, height, commit)
                 agg_done[pos_e] = None
             except Exception as e:
+                if is_device_fault(e):
+                    raise  # a fault of the card is no verdict on the entry
                 agg_done[pos_e] = e
             shape_errors.append(None)
             slices.append((off, []))
@@ -697,6 +700,8 @@ def verify_commit_light_trusting_batched(
                                                      commit_vals=commit_vals)
                 agg_done[pos_e] = None
             except Exception as e:
+                if is_device_fault(e):
+                    raise  # a fault of the card is no verdict on the entry
                 agg_done[pos_e] = e
             pre_errors.append(None)
             slices.append((off, []))

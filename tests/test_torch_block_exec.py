@@ -259,12 +259,19 @@ def test_apply_block_matches_jax(env):
 
 
 def test_parallel_execution_and_bls_updates_are_not_ported(env):
-    """Parallel execution is still refused. bls12381 updates are ported
-    now: one without a proof of possession meets the rogue-key gate
-    (tests/test_torch_bls.py holds the gate against the JAX package)."""
-    with pytest.raises(NotImplementedError, match="parallel"):
-        texec.BlockExecutor(None, None, None, None,
-                            exec_config=SimpleNamespace(version="v1"))
+    """Both are ported now. ``execution.version`` "v1" builds the parallel
+    executor (tests/test_torch_parallel_exec.py holds it against the JAX
+    package), "v0" does not. A bls12381 update without a proof of
+    possession meets the rogue-key gate (tests/test_torch_bls.py holds the
+    gate against the JAX package)."""
+    v1 = texec.BlockExecutor(None, None, None, None,
+                             exec_config=SimpleNamespace(
+                                 version="v1", workers=2,
+                                 min_parallel_txs=2))
+    assert v1._parallel is not None and v1._parallel.min_parallel_txs == 2
+    v0 = texec.BlockExecutor(None, None, None, None,
+                             exec_config=SimpleNamespace(version="v0"))
+    assert v0._parallel is None
     params = ConsensusParams(validator=ValidatorParams(["ed25519",
                                                         "bls12381"]))
     with pytest.raises(ValueError, match="proof of possession"):

@@ -111,7 +111,15 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.mempool",
                  "tendermint_tpu_torch.mempool.clist_mempool",
                  "tendermint_tpu_torch.mempool.ingest",
-                 "tendermint_tpu_torch.abci.example.counter"):
+                 "tendermint_tpu_torch.abci.example.counter",
+                 "tendermint_tpu_torch.abci.application",
+                 "tendermint_tpu_torch.p2p",
+                 "tendermint_tpu_torch.p2p.base",
+                 "tendermint_tpu_torch.blockchain",
+                 "tendermint_tpu_torch.blockchain.msgs",
+                 "tendermint_tpu_torch.blockchain.pool",
+                 "tendermint_tpu_torch.blockchain.reactor",
+                 "tendermint_tpu_torch.state.parallel"):
         assert name in imported
 
 
