@@ -109,6 +109,30 @@ Phases, each reported on its own line:
    ``device_errors_total{reason="injected", plane="light"}``), and a block
    with a flipped LastCommit signature from peer ``evil`` strikes it and
    redoes the height; both syncs complete with the source's hashes.
+4f. consensus (``BASELINE.json`` config #4's shape, then configs 2, 3
+   and 5's validator sets): the consensus state machine (no WAL), its
+   reactor, the mempool reactor and the in-process switch. A: 4 port nodes
+   (kvstore, MockPV, a full mesh) run 6 heights while 64 seeded txs go
+   into node 0's mempool; every node commits the same block and app hash
+   at every height, every tx once, and every seen commit verifies on the
+   host spec route; its votes and 4-signature commits stay under the
+   device thresholds (launches printed). B: one port node against
+   ``tools/validator_stubs.py`` (the other validators sign in the spawn
+   pool and act through the wire, as 16 peers of the node) at 150
+   validators for 8 heights and 1,000 for 4, 256 kvstore txs a height
+   (genesis ``max_gas`` 256; the node gossips no txs): every height
+   commits in round 0; K5 launches from vote flushes (executor threads,
+   at least one at each size) and from ``validate_block``'s LastCommit
+   verify (the loop),
+   K11 once for the calibration, no K7; ``crypto_device_errors_total`` 0;
+   each LastCommit's verdicts on the card equal the host spec's, the app
+   hash the kvstore spec's; heights/s, votes/s, the flushes, the K5
+   launches a height and their threads, the ``validate_block`` calls a
+   height and the card's busy share of one profiled height. Then an armed
+   ``device.vote_flush`` at height 2 of a 150-validator chain: the
+   reactor counts one fault and drops its votes, none reaches the host
+   miss path, and the chain commits (every flush on the device route
+   there; its launches are not counted on the main path).
 5. apply: block execution on a 150-validator chain with the Merkle kvstore
    app over an app state of 2^20 keys (BlockExecutor.apply_block ->
    validate_block -> verify_commit on the dense kernel; BeginBlock,
@@ -2753,6 +2777,520 @@ def run_fastsync(dev, smi: str, signer, keys) -> dict:
     return {"launches": launches, "summary": summary}
 
 
+# --- 4f. consensus: the state machine, its reactors and the in-process
+# switch; a 4-node net, then one node against signing stub validators ----
+
+CONSENSUS_CHAIN_ID = "chip-smoke-consensus"
+CONSENSUS_NET_NODES = 4      # BASELINE.json config #4's net
+CONSENSUS_NET_HEIGHTS = 6
+CONSENSUS_NET_TXS = 64
+#: (validators, heights): BASELINE.json config 2's set, then configs 3/5's
+CONSENSUS_SIZES = ((150, 8), (1000, 4))
+CONSENSUS_TXS = 256          # kvstore txs a height (genesis max_gas)
+CONSENSUS_TIMEOUT_PROPOSE_S = 3.0   # the reference's default
+CONSENSUS_ARMED = (150, 3, 2)       # validators, heights, the armed height
+CONSENSUS_PROFILED = 3       # the height profiled under torch.profiler
+CONSENSUS_HEIGHT_LIMIT_S = 60.0
+
+
+def _series_total(metric) -> float:
+    """The sum of a counter over all of its label sets."""
+    with metric._lock:
+        return sum(metric._values.values())
+
+
+class _NodeClock:
+    """Wraps a port node's ``BlockExecutor`` (``apply_block`` and
+    ``validate_block``): the time, round and hashes of each committed
+    height, the ``validate_block`` calls a height that verified a
+    LastCommit, and an optional hook run at each commit (on the node's
+    loop)."""
+
+    def __init__(self, node, on_commit=None):
+        self.node = node
+        self.on_commit = on_commit
+        self.commits = {}         # height -> (perf time, round, app hash)
+        self.validations = {}     # height -> validate_block calls
+        self.last_commit_checks = {}  # height -> those with a LastCommit
+        self.seconds = {"validate": 0.0, "apply": 0.0}  # apply's includes
+        # its own validate_block
+        execu = node.block_exec
+        apply_block, validate_block = execu.apply_block, execu.validate_block
+
+        def applied(state, block_id, block):
+            t = time.perf_counter()
+            out = apply_block(state, block_id, block)
+            self.seconds["apply"] += time.perf_counter() - t
+            h = block.header.height
+            self.commits[h] = (time.perf_counter(), node.cs.rs.round,
+                               out[0].app_hash)
+            if self.on_commit is not None:
+                self.on_commit(h)
+            return out
+
+        def validated(state, block):
+            h = block.header.height
+            self.validations[h] = self.validations.get(h, 0) + 1
+            if block.last_commit is not None and block.last_commit.size():
+                self.last_commit_checks[h] = \
+                    self.last_commit_checks.get(h, 0) + 1
+            t = time.perf_counter()
+            try:
+                return validate_block(state, block)
+            finally:
+                self.seconds["validate"] += time.perf_counter() - t
+
+        execu.apply_block, execu.validate_block = applied, validated
+
+
+def _consensus_txs(rng, tag: str, n: int):
+    return [b"%s-%04d=%s" % (tag.encode(), i, rng.bytes(6).hex().encode())
+            for i in range(n)]
+
+
+def _kvstore_spec(txs):
+    """The kvstore app's state and app hash (a big-endian tx count) after
+    ``txs``, from their bytes alone."""
+    state = {}
+    for tx in txs:
+        raw = tx.decode("utf-8", errors="replace")
+        k, v = raw.split("=", 1) if "=" in raw else (raw, raw)
+        state[k] = v
+    return state, len(txs).to_bytes(8, "big")
+
+
+def run_consensus(dev, smi: str, signer, keys) -> dict:
+    """Phase consensus. Part A: CONSENSUS_NET_NODES port nodes (kvstore,
+    MockPV, a full mesh of the in-process switch) run
+    CONSENSUS_NET_HEIGHTS heights while CONSENSUS_NET_TXS txs go into
+    node 0's mempool. Part B: one port node against
+    ``tools/validator_stubs.py`` at each of CONSENSUS_SIZES (the node holds
+    one key of ``keys``, the stubs the others), CONSENSUS_TXS txs a
+    height; then the armed run. Returns the kernels' launches and a
+    summary. Raises on any failed check."""
+    import asyncio
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch import crypto as tcrypto
+    from tendermint_tpu_torch import device as tdevice
+    from tendermint_tpu_torch.consensus.config import test_consensus_config
+    from tendermint_tpu_torch.consensus.round_state import RoundStep
+    from tendermint_tpu_torch.crypto import batch as B
+    from tendermint_tpu_torch.crypto.ed25519_cuda import verify as V
+    from tendermint_tpu_torch.libs.faults import faults
+    from tendermint_tpu_torch.libs.metrics import CryptoMetrics, Registry
+    from tendermint_tpu_torch.p2p import InProcNetwork
+    from tendermint_tpu_torch.state import state_from_genesis
+    from tendermint_tpu_torch.tools import commits
+    from tendermint_tpu_torch.tools.validator_stubs import (LocalNode,
+                                                            ValidatorStubs)
+    from tendermint_tpu_torch.types import (BlockID, GenesisDoc,
+                                            GenesisValidator, MockPV)
+    from tendermint_tpu_torch.types.params import default_consensus_params
+
+    tdevice.set_default_device(dev)
+    os.environ.pop("TMTPU_BATCH_BACKEND", None)
+    os.environ.pop("TMTPU_DEVICE_THRESHOLD", None)
+    rng = np.random.default_rng(SEED + 13)
+    launches = dict.fromkeys(MAIN_KERNELS, 0)
+    summary = {"card": smi}
+    t0_ns = commits.BASE_TIME_S * 10**9
+
+    def take_launches(main_path=True):
+        got = {k: V.launches[k] for k in launches}
+        if main_path:
+            for k, n in got.items():
+                launches[k] += n
+        V.reset_launches()
+        return got
+
+    def config():
+        cfg = test_consensus_config()
+        cfg.timeout_propose = CONSENSUS_TIMEOUT_PROPOSE_S
+        return cfg
+
+    def genesis_of(chain_id, pubs, max_gas=-1):
+        params = default_consensus_params()
+        params.block.max_gas = max_gas
+        return GenesisDoc(chain_id=chain_id, genesis_time_ns=t0_ns,
+                          validators=[GenesisValidator(p, 10) for p in pubs],
+                          consensus_params=params)
+
+    def priv(i):
+        pk, seed = keys[i]
+        return seed + pk.bytes()
+
+    async def wait_heights(clocks, height, limit_s):
+        t = time.perf_counter()
+        while min(max(c.commits, default=0) for c in clocks) < height:
+            if time.perf_counter() - t > limit_s:
+                raise AssertionError(
+                    f"consensus: heights {[max(c.commits, default=0) for c in clocks]}"
+                    f" after {limit_s} s, want {height}")
+            await asyncio.sleep(0.005)
+
+    def host_verdicts(chain_id, vals, commit):
+        rows = [(v.pub_key.bytes(), sb, cs.signature)
+                for v, cs, sb in zip(vals.validators, commit.signatures,
+                                     commit.vote_sign_bytes_all(chain_id))
+                if not cs.absent()]
+        return rows, signer.verify(rows)
+
+    # -- A. the 4-node net ----------------------------------------------------
+    t_a = time.perf_counter()
+    chain_a = CONSENSUS_CHAIN_ID + "-net"
+    pvs = [MockPV(tcrypto.Ed25519PrivKey(priv(i)))
+           for i in range(CONSENSUS_NET_NODES)]
+    genesis = genesis_of(chain_a, [pv.get_pub_key() for pv in pvs])
+    nodes = [LocalNode(f"node{i}", genesis, pv, config=config())
+             for i, pv in enumerate(pvs)]
+    clocks = [_NodeClock(nd) for nd in nodes]
+    txs_a = _consensus_txs(rng, "net", CONSENSUS_NET_TXS)
+    take_launches()
+
+    async def run_net():
+        net = InProcNetwork()
+        for nd in nodes:
+            net.add_switch(nd.switch)
+        for nd in nodes:
+            await nd.start()
+        await net.connect_topology("full_mesh")
+        for tx in txs_a:
+            nodes[0].mempool.check_tx(tx)
+        try:
+            await wait_heights(clocks, CONSENSUS_NET_HEIGHTS,
+                               CONSENSUS_HEIGHT_LIMIT_S)
+        finally:
+            for nd in nodes:
+                await nd.stop()
+
+    asyncio.run(run_net())
+    net_launches = take_launches()
+    wall_a = time.perf_counter() - t_a
+    vals_a = state_from_genesis(genesis).validators
+    seen_txs = [[] for _ in nodes]
+    for h in range(1, CONSENSUS_NET_HEIGHTS + 1):
+        metas = [nd.block_store.load_block_meta(h) for nd in nodes]
+        apps = {c.commits[h][2] for c in clocks}
+        hashes = {m.header.hash() for m in metas}
+        if len(hashes) != 1 or len(apps) != 1:
+            raise AssertionError(f"net height {h}: block hashes {hashes}, "
+                                 f"app hashes {apps}")
+        for i, nd in enumerate(nodes):
+            seen_txs[i] += nd.block_store.load_block(h).data.txs
+            seen = nd.block_store.load_seen_commit(h)
+            rows, spec = host_verdicts(chain_a, vals_a, seen)
+            bv = B.BatchVerifier(backend="host")
+            for pk, sb, sig in rows:
+                bv.add(tcrypto.Ed25519PubKey(pk), sb, sig)
+            _, host = bv.verify()
+            if list(map(bool, host)) != spec or not all(spec) or \
+                    len(rows) * 3 <= 2 * vals_a.size():
+                raise AssertionError(f"net height {h} node {i}: seen commit "
+                                     f"verdicts {list(host)} / {spec}")
+            vals_a.verify_commit(chain_a, seen.block_id, h, seen)
+    for i, got in enumerate(seen_txs):
+        committed = [tx for tx in got if tx in set(txs_a)]
+        if sorted(committed) != sorted(txs_a):
+            raise AssertionError(f"net node {i}: {len(committed)} of the "
+                                 f"{len(txs_a)} txs committed, "
+                                 f"{len(committed) - len(set(committed))} "
+                                 "twice")
+    rate_a = CONSENSUS_NET_HEIGHTS / (
+        clocks[0].commits[CONSENSUS_NET_HEIGHTS][0] - t_a)
+    say(f"phase consensus net: {CONSENSUS_NET_NODES} nodes agree on the "
+        f"block and app hash of heights 1-{CONSENSUS_NET_HEIGHTS}; all "
+        f"{len(txs_a)} txs committed once at every node; every seen commit "
+        f"verifies on the host spec route; {rate_a:.2f} heights/s, "
+        f"{wall_a:.1f} s with set-up; launches {net_launches} (votes and "
+        f"4-signature commits stay under the thresholds)")
+    summary["net"] = {"heights_per_s": rate_a, "launches": net_launches}
+
+    # -- B. one node against the signing stubs -------------------------------
+    def stub_run(n_vals, heights, chain_id, armed_at=None, profile_at=None,
+                 min_device_batch=None):
+        V.reset_launches()  # the previous run's comparisons do not count
+        pubs = [keys[i][0] for i in range(n_vals)]
+        genesis = genesis_of(chain_id, pubs, max_gas=CONSENSUS_TXS)
+        vals = state_from_genesis(genesis).validators
+        # the node holds the key that proposes height 2; the stubs propose
+        # the others (the proposer priority of equal powers)
+        p2 = vals.copy_increment_proposer_priority(1).get_proposer().address
+        node_i = next(i for i, p in enumerate(pubs) if p.address() == p2)
+        node = LocalNode("node", genesis,
+                         MockPV(tcrypto.Ed25519PrivKey(priv(node_i))),
+                         config=config(), broadcast_txs=False)
+        stubs = ValidatorStubs(genesis, {pubs[i].address(): priv(i)
+                                         for i in range(n_vals)
+                                         if i != node_i}, signer)
+        txs = _consensus_txs(rng, chain_id, CONSENSUS_TXS * heights)
+        bv = node.cs.vote_verifier
+        if min_device_batch is not None:
+            bv.min_device_batch = min_device_batch
+        flushes, failed_keys, host_keys = [], [], []
+        run_flush, fail, verify = bv._run_flush, bv._fail, bv.verify
+
+        async def counted(batch):
+            flushes.append(len(batch))
+            return await run_flush(batch)
+
+        def failing(batch, exc):
+            failed_keys.extend(b[0] for b in batch)
+            return fail(batch, exc)
+
+        def verifying(pub, msg, sig):
+            key = bv._key(pub.bytes(), msg, sig)
+            if key not in bv._cache:
+                host_keys.append(key)
+            return verify(pub, msg, sig)
+
+        bv._run_flush, bv._fail, bv.verify = counted, failing, verifying
+        prof, prof_out = [None], {}
+
+        def arm(rs):
+            # once the node has prevoted at the armed height: the flushes
+            # that follow carry that height's votes
+            if rs.height == armed_at and rs.step == RoundStep.PREVOTE \
+                    and not armed:
+                armed.append(rs.round)
+                faults.configure("device.vote_flush*1")
+
+        armed = []
+        if armed_at is not None:
+            node.cs.new_round_step_listeners.append(arm)
+
+        def on_commit(h):
+            if profile_at is not None and dev.type == "cuda":
+                if h == profile_at - 1:
+                    torch.cuda.synchronize(dev)
+                    prof[0] = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA])
+                    prof[0].start()
+                    prof_out["t"] = time.perf_counter()
+                elif h == profile_at and prof[0] is not None:
+                    torch.cuda.synchronize(dev)
+                    prof_out["wall_ms"] = \
+                        (time.perf_counter() - prof_out["t"]) * 1e3
+                    prof[0].stop()
+                    prof_out["busy_ms"] = _device_busy_ms(prof[0])
+
+        clock = _NodeClock(node, on_commit)
+        cm = CryptoMetrics(Registry())
+        B.set_crypto_metrics(cm)
+        out = {}
+
+        async def drive():
+            net = InProcNetwork()
+            net.add_switch(node.switch)
+            await node.switch.start()
+            await stubs.connect(net, "node")
+            for tx in txs:
+                node.mempool.check_tx(tx)
+                stubs.mempool.check_tx(tx)
+            out["t0"] = time.perf_counter()
+            await node.cs.start()
+            stubs.drive()
+            try:
+                await wait_heights([clock], heights,
+                                   CONSENSUS_HEIGHT_LIMIT_S)
+            finally:
+                await stubs.stop()
+                await node.stop()
+
+        with _LaunchLog() as log:
+            try:
+                asyncio.run(drive())
+            finally:
+                faults.reset()
+                B.set_crypto_metrics(None)
+            recs = log.take()
+        errs = _series_total(cm.device_errors_total)
+        return SimpleNamespace(node=node, stubs=stubs, clock=clock,
+                               flushes=flushes, failed_keys=failed_keys,
+                               host_keys=host_keys, recs=recs, errs=errs,
+                               txs=txs, vals=vals, t0=out["t0"],
+                               prof=prof_out,
+                               launches=take_launches(armed_at is None),
+                               chain_id=chain_id, bv=bv,
+                               reactor=node.cs_reactor)
+
+    def check_chain(label, r, heights):
+        node = r.node
+        committed = []
+        for h in range(1, heights + 1):
+            blk = node.block_store.load_block(h)
+            committed += blk.data.txs
+            if len(blk.data.txs) != CONSENSUS_TXS:
+                raise AssertionError(f"{label} height {h}: "
+                                     f"{len(blk.data.txs)} txs")
+            if r.stubs.commits.get(h, (None,))[0] != blk.hash():
+                raise AssertionError(f"{label} height {h}: the stubs "
+                                     "committed another block")
+            if h > 1:
+                rows, spec = host_verdicts(r.chain_id, r.vals, blk.last_commit)
+                bv = B.BatchVerifier(backend="cuda")
+                for pk, sb, sig in rows:
+                    bv.add(tcrypto.Ed25519PubKey(pk), sb, sig)
+                _, dev_v = bv.verify()
+                if list(map(bool, dev_v)) != spec or not all(spec):
+                    raise AssertionError(f"{label} height {h}: LastCommit "
+                                         f"verdicts differ from the host "
+                                         f"spec")
+        state, app_hash = _kvstore_spec(committed)
+        if (sorted(committed) != sorted(r.txs[:len(committed)]) or
+                len(committed) != CONSENSUS_TXS * heights or
+                node.app.state != state or
+                r.clock.commits[heights][2] != app_hash):
+            raise AssertionError(f"{label}: {len(committed)} txs committed, "
+                                 f"app hash {r.clock.commits[heights][2]} "
+                                 f"against the spec's {app_hash}")
+
+    B._calibrated_threshold = None  # one calibration for part B (K11)
+    if dev.type == "cuda":
+        # the profiler's first start in a process initializes CUPTI
+        # (seconds): not inside a measured height
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]):
+            torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
+    summary["stubs"] = {}
+    for n_vals, heights in CONSENSUS_SIZES:
+        label = f"consensus {n_vals}"
+        t = time.perf_counter()
+        r = stub_run(n_vals, heights, f"{CONSENSUS_CHAIN_ID}-{n_vals}",
+                     profile_at=CONSENSUS_PROFILED)
+        wall = time.perf_counter() - t
+        rounds = {h: r.clock.commits[h][1] for h in range(1, heights + 1)}
+        seen_rounds = {h: r.node.block_store.load_seen_commit(h).round
+                       for h in range(1, heights + 1)}
+        t_end = r.clock.commits[heights][0]
+        rate = heights / (t_end - r.t0)
+        bvs = r.bv.stats
+        votes = bvs["device_sigs"] + bvs["host_sigs"]
+        dev_flushes = [x for x in r.flushes if x >= r.bv.min_device_batch]
+        k5 = [x for x in r.recs if x["kernel"] == "ed25519_verify_dense"]
+        k5_main = [x for x in k5 if x["thread"] == "MainThread"]
+        k5_exec = [x for x in k5 if x["thread"] != "MainThread"]
+        k5_n = r.launches["ed25519_verify_dense"]
+        probes = r.launches["probe_sum_u8"]
+        checks = r.clock.last_commit_checks
+        problems = []
+        if any(rounds.values()) or any(seen_rounds.values()):
+            problems.append(f"rounds {rounds} / {seen_rounds}")
+        if r.launches["ed25519_verify_sparse"]:
+            problems.append("K7 ran")
+        # vote flushes reached the device, each of min_device_batch votes
+        # or more launched K5 once from an executor thread, and every
+        # LastCommit verify launched once on the loop
+        if not dev_flushes:
+            problems.append("no vote flush reached the device")
+        if (dev.type == "cuda" and (len(k5_main) != sum(checks.values())
+                                    or len(k5) != k5_n
+                                    or len(k5_exec) != len(dev_flushes))) \
+                or k5_n != len(dev_flushes) + sum(checks.values()) \
+                or bvs["device_batches"] != len(dev_flushes):
+            problems.append(f"K5 {len(k5_main)} on the loop, {len(k5_exec)}"
+                            f" on executors, {len(dev_flushes)} device "
+                            f"flushes, stats {dict(bvs)}")
+        if probes != (3 if n_vals == CONSENSUS_SIZES[0][0] else 0):
+            problems.append(f"K11 {probes}")
+        if r.errs or r.reactor.stats["preverify_device_errors"]:
+            problems.append(f"device errors {r.errs}, "
+                            f"{dict(r.reactor.stats)}")
+        if problems:
+            raise AssertionError(f"{label}: {'; '.join(problems)}")
+        check_chain(label, r, heights)
+        ms = [(r.clock.commits[h][0] - (r.clock.commits[h - 1][0] if h > 1
+                                         else r.t0)) * 1e3
+              for h in range(1, heights + 1)]
+        split = {"node_validate_ms": r.clock.seconds["validate"] * 1e3,
+                 "node_apply_ms": r.clock.seconds["apply"] * 1e3,
+                 **{f"stubs_{k}_ms": v * 1e3
+                    for k, v in r.stubs.seconds.items()}}
+        say(f"phase consensus stubs {n_vals} ({len(r.stubs.switches)} "
+            f"links): ms a height "
+            f"{[round(x, 1) for x in ms]}; time inside (ms, all heights; "
+            f"the stubs' overlaps the node's) "
+            f"{ {k: round(v, 1) for k, v in split.items()} }; the stubs "
+            f"resent {r.stubs.stats['resent']} votes")
+        busy = r.prof.get("busy_ms")
+        share = ("not measured (no device time in the trace)"
+                 if busy is None else
+                 f"{busy:.4f} of {r.prof['wall_ms']:.2f} ms, "
+                 f"{100 * busy / r.prof['wall_ms']:.2f}%")
+        n_checks = [checks.get(h, 0) for h in range(2, heights + 1)]
+        say(f"phase consensus stubs {n_vals}: {heights} heights in "
+            f"{(t_end - r.t0) * 1e3:.2f} ms = {rate:.3f} heights/s, every "
+            f"one in round 0; {votes} votes preverified = "
+            f"{votes / (t_end - r.t0):.0f} votes/s; {len(r.flushes)} "
+            f"flushes ({len(dev_flushes)} on the device, median size "
+            f"{statistics.median(r.flushes)}, max {max(r.flushes)}); K5 "
+            f"launches a height "
+            f"{k5_n / heights:.2f}: "
+            f"{len(k5_exec)} vote flushes on threads "
+            f"{sorted({x['thread'] for x in k5_exec})}, {len(k5_main)} "
+            f"validate_block LastCommit verifies on the loop (MainThread); "
+            f"validate_block verified the same LastCommit {n_checks} times "
+            f"a height (2-{heights}); K11 {probes}, K7 0; "
+            f"crypto_device_errors_total 0; the stubs proposed "
+            f"{r.stubs.stats['proposals']} blocks; the card busy in height "
+            f"{CONSENSUS_PROFILED} under torch.profiler: {share}; LastCommit "
+            f"verdicts equal the host spec's, app hash the kvstore spec's; "
+            f"{wall:.1f} s with set-up ({smi})")
+        summary["stubs"][n_vals] = {
+            "heights_per_s": rate, "votes_per_s": votes / (t_end - r.t0),
+            "flushes": len(r.flushes), "device_flushes": len(dev_flushes),
+            "median_flush": statistics.median(r.flushes),
+            "k5_per_height": k5_n / heights,
+            "k5_flush": len(k5_exec), "k5_validate": len(k5_main),
+            "validate_last_commit_per_height": n_checks,
+            "k11": probes, "busy_ms": busy,
+            "profiled_height_ms": r.prof.get("wall_ms"),
+            "height_ms": ms, "split_ms": split,
+            "resent": r.stubs.stats["resent"],
+            "links": len(r.stubs.switches)}
+
+    # -- the armed run: device.vote_flush once, at height CONSENSUS_ARMED[2]
+    n_vals, heights, armed_at = CONSENSUS_ARMED
+    label = "consensus armed"
+    # every vote flush takes the device route here, so that a flush of
+    # the armed height meets the armed site whatever its size
+    r = stub_run(n_vals, heights, f"{CONSENSUS_CHAIN_ID}-armed",
+                 armed_at=armed_at, min_device_batch=1)
+    failed, host = set(r.failed_keys), set(r.host_keys)
+    rstats = dict(r.reactor.stats)
+    commit_round = r.node.block_store.load_seen_commit(armed_at).round
+    node_round = r.clock.commits[armed_at][1]
+    if (rstats.get("preverify_device_errors") != 1 or r.errs != 1
+            or not failed or failed & host):
+        raise AssertionError(f"{label}: reactor {rstats}, "
+                             f"crypto_device_errors_total {r.errs}, "
+                             f"{len(failed)} votes in the failed flush, "
+                             f"{len(failed & host)} of them verified on "
+                             "the host")
+    check_chain(label, r, heights)
+    say(f"phase consensus armed device.vote_flush at height {armed_at} of "
+        f"{n_vals} validators: preverify_device_errors 1, "
+        f"crypto_device_errors_total 1 (every flush on the device route, "
+        f"min_device_batch 1), {len(failed)} votes of the flush "
+        f"dropped ({rstats.get('preverify_dropped_votes')} deliveries), "
+        f"none verified on the host miss path; the stubs resent "
+        f"{r.stubs.stats['resent']} votes; height {armed_at} committed "
+        f"the round-{commit_round} precommits with the node in round "
+        f"{node_round}; {heights} heights in all; launches {r.launches}, "
+        f"not counted on the main path")
+    summary["armed"] = {"commit_round": commit_round,
+                        "node_round": node_round,
+                        "dropped": rstats.get("preverify_dropped_votes"),
+                        "resent": r.stubs.stats["resent"],
+                        "launches": r.launches}
+    V.reset_launches()  # the checks' launches do not count
+    return {"launches": launches, "summary": summary}
+
+
 # --- 4b. sharded verify-and-tally (K8), the multi-device stream, the
 # device-profile stub kernels (P1-P3) and P4 -------------------------------
 
@@ -4203,6 +4741,12 @@ def main() -> int:
         fastsync["summary"]["phase_s"] = time.perf_counter() - t_fs
         say(f"phase fastsync: {fastsync['summary']['phase_s']:.1f} s in all "
             f"({smi})")
+        t_cs = time.perf_counter()
+        consensus = run_consensus(dev, smi, signer,
+                                  keys[:CONSENSUS_SIZES[-1][0]])
+        consensus["summary"]["phase_s"] = time.perf_counter() - t_cs
+        say(f"phase consensus: {consensus['summary']['phase_s']:.1f} s in "
+            f"all; launches {consensus['launches']} ({smi})")
         sha_err = sha256_check(dev)
         apply = run_apply(dev, smi, signer)
         t_bls = time.perf_counter()
@@ -4211,10 +4755,12 @@ def main() -> int:
         bls_apply = run_bls_apply(dev, smi, signer)
         bls_s = time.perf_counter() - t_bls
     for k in result["kernels"]:  # K5/K6, K7 and K11 on the light path,
-        # the evidence pool, the vote batcher, the ingest plane and fast sync
+        # the evidence pool, the vote batcher, the ingest plane, fast sync
+        # and consensus
         k["launches"] += light["launches"].get(k["name"], 0) + \
             planes["launches"].get(k["name"], 0) + \
-            fastsync["launches"].get(k["name"], 0)
+            fastsync["launches"].get(k["name"], 0) + \
+            consensus["launches"].get(k["name"], 0)
     result["kernels"] += sharded["kernels"]
     result["kernels"].append(sha256_times(
         dev, smi, int32_peak, apply["launches"]["sha256_many"], sha_err))
@@ -4238,6 +4784,7 @@ def main() -> int:
                     "sharded": sharded["summary"],
                     "light": light["summary"], **planes["summary"],
                     "fastsync": fastsync["summary"],
+                    "consensus": consensus["summary"],
                     "card": smi}))
     say(json.dumps({"kernels": result["kernels"]}))
     say(json.dumps({"ok": True, "device": {

@@ -10,9 +10,9 @@ from __future__ import annotations
 
 
 def check_aggregated_commit_time(commit, seen_ts_ns, now_ns_, drift_ns) -> None:
-    """Window check behind the JAX package's
-    ConsensusState._check_aggregated_commit_time (consensus/state.py),
-    which a validator runs on an aggregated LastCommit before it prevotes.
+    """Window check behind ConsensusState._check_aggregated_commit_time
+    (consensus/state.py), which a validator runs on an aggregated
+    LastCommit before it prevotes.
 
     `seen_ts_ns` are the precommit timestamps THIS node recorded for the
     commit's height from validators inside the signer bitmap; possibly a

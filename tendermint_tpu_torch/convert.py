@@ -11,6 +11,9 @@ cannot be:
   proto wire format) into the port's types;
 * :func:`block_from_reference` decodes a ``Block.encode()`` (the blocks
   a fast-sync replay carries);
+* :func:`vote_from_reference`, :func:`proposal_from_reference` and
+  :func:`part_from_reference` decode a ``Vote`` / ``Proposal`` / block
+  ``Part`` ``encode()`` (what the consensus WAL and wire carry);
 * :func:`evidence_from_reference` decodes an evidence item's
   ``wrapped()`` bytes (the Evidence oneof envelope) into the port's
   ``DuplicateVoteEvidence`` or ``LightClientAttackEvidence``;
@@ -27,7 +30,10 @@ from .crypto.ed25519_cuda import field as F
 from .types.block import Block, Commit
 from .types.evidence import Evidence, decode_evidence
 from .types.light_block import LightBlock, SignedHeader
+from .types.part_set import Part
+from .types.proposal import Proposal
 from .types.validator_set import ValidatorSet
+from .types.vote import Vote
 
 _REF_NLIMBS = 17
 _REF_RADIX = 15
@@ -51,6 +57,18 @@ def block_from_reference(encoded: bytes) -> Block:
 
 def light_block_from_reference(encoded: bytes) -> LightBlock:
     return LightBlock.decode(encoded)
+
+
+def vote_from_reference(encoded: bytes) -> Vote:
+    return Vote.decode(encoded)
+
+
+def proposal_from_reference(encoded: bytes) -> Proposal:
+    return Proposal.decode(encoded)
+
+
+def part_from_reference(encoded: bytes) -> Part:
+    return Part.decode(encoded)
 
 
 def evidence_from_reference(encoded: bytes) -> Evidence:

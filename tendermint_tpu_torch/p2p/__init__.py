@@ -1,13 +1,15 @@
 """Peer-to-peer interfaces (reference p2p/, SURVEY.md §2.4).
 
-Only the Reactor / Peer / ChannelDescriptor / Envelope interfaces
-(``base``) and the channel IDs are ported so far: fast sync
-(``blockchain/reactor.py``) is a ``Reactor``. The switch, the in-process
-and TCP transports, node keys, addresses and node info come with the
-node; this package imports nothing else.
+The Reactor / Peer / ChannelDescriptor / Envelope interfaces (``base``),
+the ``Switch`` (reactor registry and peer lifecycle) and the in-process
+transport (``InProcNetwork``: whole networks in one asyncio loop, the
+reference's own test transport) are ported. The TCP transport, secret
+connection, node keys, addresses and node info come with the node.
 """
 
 from .base import ChannelDescriptor, Envelope, Peer, Reactor  # noqa: F401
+from .switch import Switch  # noqa: F401
+from .inproc import InProcNetwork  # noqa: F401
 
 # Channel IDs (reference consensus/reactor.go:26-29, mempool/mempool.go:14,
 # evidence/reactor.go:16, blockchain/v0/reactor.go, statesync/reactor.go:22)

@@ -119,7 +119,21 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "tendermint_tpu_torch.blockchain.msgs",
                  "tendermint_tpu_torch.blockchain.pool",
                  "tendermint_tpu_torch.blockchain.reactor",
-                 "tendermint_tpu_torch.state.parallel"):
+                 "tendermint_tpu_torch.state.parallel",
+                 "tendermint_tpu_torch.p2p.switch",
+                 "tendermint_tpu_torch.p2p.inproc",
+                 "tendermint_tpu_torch.consensus",
+                 "tendermint_tpu_torch.consensus.config",
+                 "tendermint_tpu_torch.consensus.round_state",
+                 "tendermint_tpu_torch.consensus.msgs",
+                 "tendermint_tpu_torch.consensus.wal",
+                 "tendermint_tpu_torch.consensus.timeline",
+                 "tendermint_tpu_torch.consensus.state",
+                 "tendermint_tpu_torch.consensus.replay",
+                 "tendermint_tpu_torch.consensus.reactor",
+                 "tendermint_tpu_torch.mempool.reactor",
+                 "tendermint_tpu_torch.evidence.reactor",
+                 "tendermint_tpu_torch.tools.validator_stubs"):
         assert name in imported
 
 
